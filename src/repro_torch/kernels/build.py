@@ -1,0 +1,136 @@
+"""Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
+
+Each ``repro_torch/kernels/<name>/kernel.cu`` is compiled on its own into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), all sources at once, one nvcc each.  The libraries go to
+``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
+of the source and the flags: an edited source is rebuilt, an unchanged one
+is loaded as it is.  Nothing is compiled or loaded when a module is
+imported; the first launch, or :func:`build`, does it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+#: Every kernel of the port, by directory name.
+KERNELS = ("adagrad", "server_step")
+
+#: ``-fmad=false`` keeps every multiply and add separately rounded, as the
+#: eager PyTorch versions are: the kernels promise bit-equality with them.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> Path:
+    return _HERE / name / "kernel.cu"
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def build(names=KERNELS) -> float:
+    """Compile every library of ``names`` that is not built yet, all at
+    once, and return the wall seconds it took.  Raises with nvcc's output
+    when a source does not compile."""
+    t0 = time.perf_counter()
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            procs.append((name, out, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
+                              f"{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built first if need be),
+    with its C ``entry`` declared as ``int entry(*argtypes, stream)``
+    beside ``repro_cuda_error_string``.  Every pointer and the stream must
+    be ``c_void_p``: ctypes would cut an undeclared pointer to 32 bits."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build()
+            lib = ctypes.CDLL(str(library_path(name)))
+            getattr(lib, entry).restype = ctypes.c_int
+            getattr(lib, entry).argtypes = [*argtypes, ctypes.c_void_p]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            _loaded[name] = lib
+    return lib
+
+
+def runs_kernel(device: torch.device, kernel: str) -> bool:
+    """The dispatch rule of every wrapper: True for a CUDA device (launch
+    the kernel), False for the CPU (run the plain version); any other
+    device raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {device}")
+    return True
+
+
+def launch(wrapper, name: str, entry: str, argtypes: list,
+           device: torch.device, *args) -> None:
+    """Call C ``entry`` of kernel ``name`` with ``args`` and the current
+    stream of ``device``; raise if it returned a CUDA error
+    (``cudaGetLastError()`` right after the launch: a refused launch never
+    runs, and a later synchronize would not report it); else add one to
+    ``wrapper.launches``."""
+    lib = library(name, entry, argtypes)
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*args,
+                                   torch.cuda.current_stream().cuda_stream)
+    if code:
+        msg = lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")
+    wrapper.launches += 1
+
+
+__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "launch",
+           "library", "runs_kernel"]

@@ -1,0 +1,72 @@
+"""Public wrapper of the fused federated server-step kernel (K1).
+
+:func:`server_step_update` checks its tensors, then dispatches by their
+device: CUDA tensors launch ``kernel.cu`` on the current stream (or raise),
+CPU tensors run the plain version in ``ref.py``.  Only a launch adds one to
+``server_step_update.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.server_step.ref import server_step_ref
+
+#: The block's copy of the coefficients lives in 48 KB of shared memory.
+MAX_MEMBERS = 48 * 1024 // 4
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float]
+
+
+def _check(p, g_stack, acc, coeffs) -> None:
+    named = (("p", p), ("g_stack", g_stack), ("acc", acc),
+             ("coeffs", coeffs))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m = g_stack.shape[0] if g_stack.dim() else 0
+    if not 1 <= m <= MAX_MEMBERS:
+        raise ValueError(f"g_stack must stack 1..{MAX_MEMBERS} members, "
+                         f"got shape {tuple(g_stack.shape)}")
+    if (acc.shape != p.shape or g_stack.shape[1:] != p.shape
+            or coeffs.shape != (m,)):
+        raise ValueError(
+            f"shapes disagree: p {tuple(p.shape)}, acc {tuple(acc.shape)}, "
+            f"g_stack {tuple(g_stack.shape)}, coeffs {tuple(coeffs.shape)}")
+
+
+def server_step_update(p, g_stack, acc, coeffs, *, lr: float,
+                       beta: float = 1.0, weight_decay: float = 0.0):
+    """Fused clip×weight mean + modified-AdaGrad update.
+
+    ``p``/``acc``: f32, any shape; ``g_stack``: f32 (M, *p.shape);
+    ``coeffs``: f32 (M,) — each member's clip scale × normalised work
+    weight; all contiguous, on one device.  Returns ``(p', acc')`` f32 in
+    ``p``'s shape."""
+    _check(p, g_stack, acc, coeffs)
+    if not runs_kernel(p.device, "server-step"):
+        return server_step_ref(p, g_stack, acc, coeffs, lr=lr, beta=beta,
+                               weight_decay=weight_decay)
+    p_out, acc_out = torch.empty_like(p), torch.empty_like(acc)
+    if p.numel():
+        launch(server_step_update, "server_step", "repro_server_step",
+               _ARGTYPES, p.device, p.data_ptr(), g_stack.data_ptr(),
+               acc.data_ptr(), coeffs.data_ptr(), p_out.data_ptr(),
+               acc_out.data_ptr(), p.numel(), g_stack.shape[0], float(lr),
+               float(beta), int(bool(weight_decay)), float(weight_decay))
+    return p_out, acc_out
+
+
+server_step_update.launches = 0
+
+__all__ = ["MAX_MEMBERS", "server_step_update"]
