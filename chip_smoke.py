@@ -9,19 +9,32 @@ Phases, one line each:
 
   1. environment: versions, the card, ``nvidia-smi`` name and power limit;
      TF32 off and cuDNN deterministic, so the checks below are exact;
-  2. build: both CUDA kernels from the checkout's sources (nvcc, first use);
+  2. build: the four CUDA kernels from the checkout's sources (nvcc, first
+     use, all at once);
   3. each kernel against its plain PyTorch version on the card, over edge
-     and main-path sizes, bitwise; the kernel's and the plain version's
-     times on the card at the main path's shapes beside the card's bound,
-     and the kernel's time as a caller that issues one call at a time
-     waits for it (``unheld``);
+     and main-path sizes: K1, K2 and K5 (WKV) bitwise, K3 (flash
+     attention) within ``tests/test_kernels.py::_tol``; each kernel's and
+     its plain version's times on the card at the main path's shapes
+     beside the card's bound (K1, K2 also as a caller that issues one
+     call at a time waits for them, ``unheld``; K3 also beside PyTorch's
+     ``scaled_dot_product_attention``, which nothing on the path calls);
   4. the Fig. 3 path at full width: the FIG4 CNN (609,258 params) trained
      through a FederatedDistributor behind a TransportServer with 3 remote
      v2-wire clients on loopback, K-of-N reticket barrier, FusedServerStep
      on the card; held to its in-process twin (TreeServerStep), and a
      round checkpoint written and reloaded bit-exactly;
   5. the quickstart path: the FIG2 CNN trained in-process with
-     ``adagrad(use_kernel=True)``.
+     ``adagrad(use_kernel=True)``;
+  6. serving qwen3-4b at full width and depth (f32, random weights from a
+     seed): ``generate`` with batch 4, prompt 512, 16 new tokens, one K3
+     launch per layer of the prefill; every served position's logits
+     against a teacher-forced ``forward_features`` over prompt + generated
+     tokens, and the first and last K3 launch re-run through the plain
+     version; then a planted fault (each decode step one cache slot
+     early) must fail the served-vs-forward check;
+  7. the same for rwkv6-1.6b, with one K5 launch per layer of the prefill
+     and of each decode step; its planted fault drops the WKV state the
+     prefill hands over.
 
 The launch counts of each kernel are set to 0 just before the path that
 runs it and read just after.  The line before the last is one JSON object
@@ -32,6 +45,8 @@ exits non-zero and prints no result; so does a host without CUDA.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -50,9 +65,13 @@ from repro_torch.configs.paper_cnn import FIG2_CNN, FIG4_CNN  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.adagrad.ops import adagrad_update  # noqa: E402
 from repro_torch.kernels.adagrad.ref import adagrad_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import cnn, layers, rwkv  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM3 bytes/s and f32 (non-tensor-core)
@@ -72,6 +91,32 @@ FABRIC_LR = 0.05
 QUICKSTART_STEPS = 30
 QUICKSTART_LR = 0.02
 
+#: tests/test_kernels.py::_tol: the bars K3 and K5 are held to
+TOL_F32 = dict(atol=3e-5, rtol=1e-4)
+TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
+#: K5 is held to its plain version bit for bit
+BITWISE = dict(atol=0.0, rtol=0.0)
+#: test_flash_attention_sweep's grid (b, s, hq, hkv, hd), plus a sequence
+#: that no 64-row tile divides
+K3_SHAPES = ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
+             (2, 192, 6, 2, 32), (2, 100, 4, 2, 64))
+K3_MASKS = ((True, 0), (False, 0), (True, 64))
+#: test_rwkv6_wkv_sweep's grid (b, t, h, hd)
+K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32))
+#: the serve path: batch, prompt length, new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
+#: served logits against the teacher-forced forward over the same tokens,
+#: per architecture: the same f32 model, once as 1 + SERVE_GEN incremental
+#: steps (decode attention in torch ops, matrix products of 4 rows) and
+#: once as one full forward (K3 or one K5 call over the whole sequence,
+#: products of 2112 rows), so only the rounding of f32 sums differs.  The
+#: largest gaps seen are 2.65e-5 (qwen3-4b) and 9.13e-4 (rwkv6-1.6b, whose
+#: slowest decay, ~0.993 a step, carries the rounding through ~150 steps
+#: of state; PERF.md).  Each phase also plants a fault and requires
+#: the same check to fail on it.
+SERVE_TOL = {"qwen3-4b": dict(atol=1e-3, rtol=0.0),
+             "rwkv6-1.6b": dict(atol=3e-3, rtol=0.0)}
+
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
@@ -81,6 +126,16 @@ def say(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+#: every kernel's wrapper, whose ``launches`` counts its kernel's launches
+WRAPPERS = (server_step_update, adagrad_update, flash_attention, wkv)
+
+
+def _zero_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
 
 
 # --- 1. environment ---------------------------------------------------------
@@ -128,23 +183,31 @@ class ColdTimer:
         self.reps, self.warmup, self.hold = reps, warmup, hold
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                                  device="cuda")
+
+    @staticmethod
+    def _spin_cycles_per_ms() -> float:
+        """The spin kernel's rate at the card's present clock (measured
+        after the warm-ups: an idle card's lower clock would make every
+        later spin too short to hold the card)."""
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         torch.cuda._sleep(1_000_000)
         end.record()
         torch.cuda.synchronize()
-        self.spin_cycles_per_ms = 1e6 / start.elapsed_time(end)
+        return 1e6 / start.elapsed_time(end)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps: int | None = None) -> float:
+        """``reps`` (default: the timer's) runs after the warm-ups."""
         t0 = time.perf_counter()
         for _ in range(self.warmup):
             fn()
         torch.cuda.synchronize()
         issue_ms = 1e3 * (time.perf_counter() - t0) / self.warmup
-        spin = int(2 * issue_ms * self.spin_cycles_per_ms) + 1
+        if self.hold:
+            spin = int(2 * issue_ms * self._spin_cycles_per_ms()) + 1
         pairs = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush.zero_()
             if self.hold:
                 torch.cuda._sleep(spin)
@@ -160,6 +223,11 @@ class ColdTimer:
 
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _within(got, want, atol: float, rtol: float) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
 def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
@@ -263,6 +331,164 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     }
 
 
+# --- 3b. attention (K3) and WKV (K5) against their plain versions -----------
+
+
+def _bound(nbytes: int, flops: int) -> tuple:
+    """(ms, what bounds it): the larger of the bytes' and the operations'
+    times at the card's peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _k3_bound(q, k, causal: bool = True) -> tuple:
+    """Bytes: q, k, v read and out written once.  Operations: the two
+    products over the (query, key) pairs this mask leaves visible."""
+    b, s, hq, hd = q.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * hq * hd * pairs
+    return _bound((2 * q.numel() + 2 * k.numel()) * q.element_size(), flops)
+
+
+def _k5_bound(r, s0) -> tuple:
+    """Bytes: r, k, v, w, u and s0 read and y and sT written once (all f32
+    here).  Operations: the function's least, not the 7 of the order the
+    kernel rounds in.  y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i is 2
+    per state element a step (a multiply and an add) plus 5 per column
+    (3 for the row sum, 2 to fold it in); S'_ij = w_i S_ij + k_i v_j is
+    3 per element."""
+    b, t, h, hd = r.shape
+    return _bound(4 * (5 * r.numel() + h * hd + 2 * s0.numel()),
+                  b * t * h * (5 * hd * hd + 5 * hd))
+
+
+def phase_lm_kernels(timer: ColdTimer) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    # K3 against attention_ref on the same inputs
+    k3_err, k3_cases = {"float32": 0.0, "bfloat16": 0.0}, 0
+    for b, s, hq, hkv, hd in K3_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (rand(b, s, h, hd, dtype=dtype) for h in (hq, hkv, hkv))
+            for causal, window in K3_MASKS:
+                got = flash_attention(q, k, v, causal=causal, window=window)
+                want = attention_ref(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, window=window).transpose(1, 2)
+                torch.cuda.synchronize()
+                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+                name = str(dtype).split(".")[1]
+                check(got.dtype == dtype and _within(got, want, **tol),
+                      f"K3 within {tol} of its plain version at "
+                      f"{(b, s, hq, hkv, hd)} {name} causal={causal} "
+                      f"window={window}: max err {_max_err(got, want)}")
+                k3_err[name] = max(k3_err[name], _max_err(got, want))
+                k3_cases += 1
+    # the main path's shape: qwen3-4b's prefill
+    q = rand(SERVE_BATCH, SERVE_PROMPT, 32, 128)
+    k, v = (rand(SERVE_BATCH, SERVE_PROMPT, 8, 128) for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention(q, k, v)
+    want = attention_ref(qt, kt, vt).transpose(1, 2)
+    torch.cuda.synchronize()
+    check(_within(got, want, **TOL_F32), f"K3 within {TOL_F32} at the main "
+          f"path's shape: max err {_max_err(got, want)}")
+    k3_err["float32"] = max(k3_err["float32"], _max_err(got, want))
+    k3_cases += 1
+    k3_ms = timer(lambda: flash_attention(q, k, v))
+    k3_plain = timer(lambda: attention_ref(qt, kt, vt))
+    k3_lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    k3_bound, k3_by = _k3_bound(q, k)
+    del q, k, v, qt, kt, vt, got, want
+
+    # K5 against wkv_ref on the same inputs: bitwise (same operations in
+    # the same order, each rounded once)
+    k5_err, k5_cases = 0.0, 0
+
+    def wkv_inputs(b, t, h, hd, dtype=torch.float32, s0_scale=0.1):
+        r, k, v = (rand(b, t, h, hd, dtype=dtype, scale=0.5)
+                   for _ in range(3))
+        w = 0.7 + 0.299 * torch.rand(b, t, h, hd, generator=gen,
+                                     device="cuda")
+        return (r, k, v, w, rand(h, hd, scale=0.1),
+                rand(b, h, hd, hd, scale=s0_scale))
+
+    def k5_check(ins, where):
+        nonlocal k5_err, k5_cases
+        (y, sT), (y_ref, sT_ref) = wkv(*ins), wkv_ref(*ins)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, _max_err(y, y_ref), _max_err(sT, sT_ref))
+        check(y.dtype == ins[0].dtype and torch.equal(y, y_ref)
+              and torch.equal(sT, sT_ref),
+              f"K5 bitwise equal to its plain version at {where}: max err "
+              f"{_max_err(y, y_ref)} (y), {_max_err(sT, sT_ref)} (sT)")
+        k5_cases += 1
+        return y, sT
+
+    for shape in K5_SHAPES + ((SERVE_BATCH, 1, 32, 64),):
+        for dtype in (torch.float32, torch.bfloat16):
+            k5_check(wkv_inputs(*shape, dtype=dtype), f"{shape} {dtype}")
+    # two calls chained through sT give one call over the whole sequence
+    r, k, v, w, u, s0 = wkv_inputs(1, 64, 2, 64)
+    y_full, s_full = k5_check((r, k, v, w, u, s0), "chain, one shot")
+    y1, s1 = k5_check(tuple(z[:, :40].contiguous() for z in (r, k, v, w))
+                      + (u, s0), "chain, first half")
+    y2, s2 = k5_check(tuple(z[:, 40:].contiguous() for z in (r, k, v, w))
+                      + (u, s1), "chain, second half")
+    check(torch.equal(torch.cat([y1, y2], 1), y_full)
+          and torch.equal(s2, s_full),
+          "K5 chained through sT bitwise equal to one shot")
+    # the main path's shapes: rwkv6-1.6b's prefill and one decode step
+    prefill_in = wkv_inputs(SERVE_BATCH, SERVE_PROMPT, 32, 64)
+    k5_check(prefill_in, "the prefill's shape")
+    decode_in = wkv_inputs(SERVE_BATCH, 1, 32, 64)
+    k5_ms = timer(lambda: wkv(*prefill_in))
+    # ~70,000 small launches a call: a few runs suffice
+    k5_plain = timer(lambda: wkv_ref(*prefill_in), reps=3)
+    k5_bound, k5_by = _k5_bound(prefill_in[0], prefill_in[5])
+    k5_step_ms = timer(lambda: wkv(*decode_in))
+    k5_step_plain = timer(lambda: wkv_ref(*decode_in))
+    k5_step_bound, _ = _k5_bound(decode_in[0], decode_in[5])
+
+    say("3b lm kernels", k3_cases=k3_cases,
+        k3_max_err_f32=f"{k3_err['float32']:.3g}",
+        k3_max_err_bf16=f"{k3_err['bfloat16']:.3g}",
+        k3_ms=f"{k3_ms:.6f}", k3_plain_ms=f"{k3_plain:.6f}",
+        k3_sdpa_ms=f"{k3_lib:.6f}", k3_bound_ms=f"{k3_bound:.6f}",
+        k3_bound_by=k3_by,
+        k3_shape=f"B{SERVE_BATCH},S{SERVE_PROMPT},Hq32,Hkv8,hd128,f32,causal",
+        k5_cases=k5_cases, k5_bitwise="yes", k5_max_err=f"{k5_err:.3g}",
+        k5_ms=f"{k5_ms:.6f}", k5_plain_ms=f"{k5_plain:.6f}",
+        k5_bound_ms=f"{k5_bound:.6f}", k5_bound_by=k5_by,
+        k5_shape=f"B{SERVE_BATCH},T{SERVE_PROMPT},H32,hd64,f32",
+        k5_step_ms=f"{k5_step_ms:.6f}",
+        k5_step_plain_ms=f"{k5_step_plain:.6f}",
+        k5_step_bound_ms=f"{k5_step_bound:.6f}", k5_library="none")
+    return {
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+            "max_abs_err": max(k3_err["float32"], k3_err["bfloat16"]),
+            "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": k3_lib},
+        "rwkv6": {
+            "name": "wkv", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/kernel.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:26",
+            "max_abs_err": k5_err, "ms": k5_ms,
+            "plain_ms": k5_plain, "bound_ms": k5_bound,
+            "bound_by": k5_by, "library_ms": None},
+    }
+
+
 # --- 4. the Fig. 3 path through the fabric ------------------------------------
 
 
@@ -359,7 +585,7 @@ def phase_fabric() -> int:
     from repro_torch.train_fabric import (load_round_checkpoint,
                                           param_count, state_to_tree)
 
-    server_step_update.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     loop, trainer, errors = asyncio.run(_fabric_train(FABRIC_ROUNDS))
     torch.cuda.synchronize()
@@ -429,7 +655,7 @@ def phase_quickstart() -> int:
     labels = torch.from_numpy(labels).cuda()
     grad_fn = cnn.loss_and_grads(ccfg)
     bs = ccfg.batch_size
-    adagrad_update.launches = 0
+    _zero_counts()
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -461,14 +687,254 @@ def phase_quickstart() -> int:
     return launches
 
 
+# --- 6, 7. serving the LM zoo ------------------------------------------------
+
+
+def _record_calls(fn):
+    """``fn`` wrapped to keep the arguments and the result of its first and
+    of its last call.  It keeps references, not copies, so the served run
+    it times does no extra work: the models hand each kernel fresh tensors
+    and change none of them afterwards (the KV cache is written by copy,
+    the RWKV state is stacked anew each step).  Were one changed, its
+    re-run would disagree and fail the check, not pass it."""
+    seen = {}
+
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if "first" not in seen:
+            seen["first"] = (args, kwargs, out)
+        seen["last"] = (args, kwargs, out)
+        return out
+
+    return call, seen
+
+
+def _plain_flash_attention(q, k, v, *, causal=True, window=0):
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal,
+                         window=window).transpose(1, 2)
+
+
+def _decode_device_ms(api, params, cache, token) -> float:
+    """The summed device time of the kernels of one decode step, from a
+    ``torch.profiler`` trace of it (one step first, untraced, so the
+    trace sees no first-call work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    index = SERVE_PROMPT + SERVE_GEN - 1    # rewrites the last cache slot
+    with torch.inference_mode():           # the cache is an inference tensor
+        api.decode_step(params, cache, token, index)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            api.decode_step(params, cache, token, index)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    check(bool(kernels), "the profiler traced the decode step's kernels")
+    return sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def _off_by_one_slot(api):
+    """A planted fault: every decode step writes its key and value into the
+    cache slot before its own (over the last token's) and ropes them one
+    position early."""
+    return dataclasses.replace(
+        api, decode_step=lambda params, cache, token, index, **kw:
+        api.decode_step(params, cache, token, index - 1, **kw))
+
+
+def _state_dropped(api):
+    """A planted fault: decoding starts from a zero WKV state, not from the
+    one the prefill hands over."""
+    def prefill(*args, **kwargs):
+        logits, cache = api.prefill(*args, **kwargs)
+        return logits, dict(cache, wkv=torch.zeros_like(cache["wkv"]))
+    return dataclasses.replace(api, prefill=prefill)
+
+
+def _serve(api, params, prompts):
+    """``generate`` with each prefill and decode step timed by CUDA events
+    and its last position's logits kept: (tokens, logits (B, 1 + GEN, V),
+    the steps' ms, the last cache)."""
+    from repro_torch.launch.serve import generate
+
+    vocab = api.cfg.vocab_size
+    served, spans, last = [], [], {}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = fn(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            served.append(logits[:, -1, :vocab].clone())
+            last["cache"] = cache
+            return logits, cache
+        return call
+
+    toks = generate(dataclasses.replace(api, prefill=timed(api.prefill),
+                                        decode_step=timed(api.decode_step)),
+                    params, prompts, gen=SERVE_GEN)
+    torch.cuda.synchronize()
+    return (toks, torch.stack(served, 1),
+            [s.elapsed_time(e) for s, e in spans], last["cache"])
+
+
+def _teacher_forced(api, params, prompts, toks):
+    """One forward over prompt + served tokens: the logits of positions
+    S-1 .. S+GEN-1, which the served steps produced one by one."""
+    with torch.inference_mode():
+        tf, _, _ = api.forward_features(
+            params, {"tokens": torch.cat([prompts, toks], 1)})
+    return tf[:, SERVE_PROMPT - 1:, :api.cfg.vocab_size]
+
+
+def phase_serve(phase: str, arch: str, wrapper, module, attr: str, plain,
+                per_call_tol, calls_per_layer: int, fault) -> int:
+    """``generate`` on ``arch`` at full width and depth, f32, with every
+    launch of ``wrapper`` (called by the model as ``module.attr``) counted
+    and the first and last recorded; then the checks described in the
+    module docstring.  ``wrapper`` must launch ``calls_per_layer`` times a
+    layer while serving.  Then ``fault`` (the api with a planted fault)
+    serves the same prompts, and the served-vs-forward check must fail on
+    it.  Last, the kernels of one more decode step are traced: their device
+    time beside the step's time as served gives the device's idle share
+    while decoding."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models.model import build_model, count_params_analytic
+    from repro_torch.sharding.spec import values_tree
+
+    cfg = get_arch_config(arch)
+    tol = SERVE_TOL[arch]
+    expected = calls_per_layer * cfg.num_layers
+    vocab = cfg.vocab_size
+    api = build_model(cfg, compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = values_tree(api.init(gen))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == count_params_analytic(cfg),
+          f"{arch}: {n_params} params, the analytic count says "
+          f"{count_params_analytic(cfg)}")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda", torch.int32)
+
+    original = getattr(module, attr)
+    recorder, seen = _record_calls(original)
+    setattr(module, attr, recorder)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        toks, served, ms, cache = _serve(api, params, prompts)
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+    finally:
+        setattr(module, attr, original)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts[wrapper.__name__]
+    check(launches == expected,
+          f"{arch}: {wrapper.__name__} launched {expected} times while "
+          f"serving, got {counts}")
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < vocab)).all()),
+          f"{arch}: tokens of shape {(SERVE_BATCH, SERVE_GEN)} in the "
+          f"vocabulary, got {tuple(toks.shape)} {toks.dtype}")
+    check(bool(torch.isfinite(served).all()), f"{arch}: finite logits")
+
+    # the served logits against one teacher-forced forward over the same
+    # tokens
+    tf = _teacher_forced(api, params, prompts, toks)
+    err = _max_err(served, tf)
+    check(_within(served, tf, **tol),
+          f"{arch}: served logits within {tol} of the teacher-forced "
+          f"forward: max err {err}")
+    top2 = tf.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]
+                > tol["atol"] + tol["rtol"] * top2[..., 0].abs())
+    same = served.argmax(-1) == tf.argmax(-1)
+    check(bool(same[decisive].all()),
+          f"{arch}: served argmax equals the teacher-forced argmax wherever "
+          f"the top-two gap exceeds the tolerance")
+    logits_absmax = float(tf.abs().max())
+    del tf
+
+    # the first and last kernel launch of the run against the plain version
+    rerun_err, rerun_shapes = 0.0, {}
+    for which in ("first", "last"):
+        args, kwargs, out = seen[which]
+        out = out if isinstance(out, tuple) else (out,)
+        with torch.inference_mode():
+            want = plain(*args, **kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        for got, ref, call_tol in zip(out, want, per_call_tol):
+            check(_within(got, ref, **call_tol),
+                  f"{arch}: the {which} {wrapper.__name__} launch within "
+                  f"{call_tol} of its plain version: max err "
+                  f"{_max_err(got, ref)}")
+            rerun_err = max(rerun_err, _max_err(got, ref))
+        rerun_shapes[which] = "x".join(str(n) for n in args[0].shape)
+    del seen
+
+    # the same check must fail on a planted fault
+    bad_api = fault(api)
+    bad_toks, bad_served, _, _ = _serve(bad_api, params, prompts)
+    bad_tf = _teacher_forced(api, params, prompts, bad_toks)
+    bad_err = _max_err(bad_served, bad_tf)
+    check(not _within(bad_served, bad_tf, **tol),
+          f"{arch}: a planted fault ({fault.__name__}) fails the served-vs-"
+          f"forward check at {tol}: its max err is only {bad_err}")
+    del bad_api, bad_served, bad_tf
+
+    decode_ms = statistics.median(ms[1:])
+    device_ms = _decode_device_ms(api, params, cache, toks[:, -1:])
+    say(phase, arch=arch, params=n_params, batch=SERVE_BATCH,
+        prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        **{f"{wrapper.__name__}_launches": launches},
+        other_launches=sum(counts.values()) - launches,
+        wall_s=f"{wall:.3f}", tok_s=f"{SERVE_BATCH * SERVE_GEN / wall:.1f}",
+        prefill_ms=f"{ms[0]:.3f}",
+        decode_step_ms_median=f"{decode_ms:.3f}",
+        decode_step_device_ms=f"{device_ms:.3f}",
+        decode_idle_share=f"{1 - device_ms / decode_ms:.3f}",
+        peak_gb=f"{peak_gb:.2f}", logits_absmax=f"{logits_absmax:.3g}",
+        tol_atol=tol["atol"], logits_max_err_vs_forward=f"{err:.3g}",
+        argmax_decisive=f"{int(decisive.sum())}/{decisive.numel()}",
+        argmax_equal=f"{int(same.sum())}/{same.numel()}",
+        rerun_first=rerun_shapes["first"], rerun_last=rerun_shapes["last"],
+        rerun_max_err=f"{rerun_err:.3g}", planted_fault=fault.__name__,
+        planted_max_err_vs_forward=f"{bad_err:.3g}")
+    del params, api, served, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     device = phase_environment()
     built = build.build()
     say("2 build", kernels=",".join(build.KERNELS), seconds=f"{built:.3f}",
-        flags=repr(" ".join(build.NVCC_FLAGS)))
-    kernels = phase_kernels(ColdTimer(), ColdTimer(hold=False))
+        **{f"flags_{k}": repr(" ".join(v))
+           for k, v in build.NVCC_FLAGS.items()})
+    timer = ColdTimer()
+    kernels = phase_kernels(timer, ColdTimer(hold=False))
+    kernels.update(phase_lm_kernels(timer))
     kernels["server_step"]["launches"] = phase_fabric()
     kernels["adagrad"]["launches"] = phase_quickstart()
+    kernels["flash_attention"]["launches"] = phase_serve(
+        "6 serve", "qwen3-4b", flash_attention, layers,
+        "flash_attention", _plain_flash_attention, (TOL_F32,),
+        calls_per_layer=1, fault=_off_by_one_slot)
+    kernels["rwkv6"]["launches"] = phase_serve(
+        "7 serve", "rwkv6-1.6b", wkv, rwkv, "wkv", wkv_ref,
+        (BITWISE, BITWISE), calls_per_layer=1 + SERVE_GEN,
+        fault=_state_dropped)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -22,12 +22,22 @@ from pathlib import Path
 import torch
 
 #: Every kernel of the port, by directory name.
-KERNELS = ("adagrad", "server_step")
+KERNELS = ("adagrad", "server_step", "flash_attention", "rwkv6")
 
-#: ``-fmad=false`` keeps every multiply and add separately rounded, as the
-#: eager PyTorch versions are: the kernels promise bit-equality with them.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: Each kernel's nvcc flags (part of its library's hash).  ``-fmad=false``
+#: keeps every multiply and add separately rounded, as the eager PyTorch
+#: versions are: K1, K2 and K5 promise bit-equality with them.  Attention
+#: is held to its plain version within a tolerance, and lets nvcc contract
+#: ``a*b+c`` into one fused multiply-add.
+NVCC_FLAGS = {
+    "adagrad": _COMMON_FLAGS + ("-fmad=false",),
+    "server_step": _COMMON_FLAGS + ("-fmad=false",),
+    "flash_attention": _COMMON_FLAGS,
+    "rwkv6": _COMMON_FLAGS + ("-fmad=false",),
+}
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
@@ -42,7 +52,7 @@ def source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -69,7 +79,7 @@ def build(names=KERNELS) -> float:
         for name, out in todo:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             procs.append((name, out, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+                [nvcc, *NVCC_FLAGS[name], "-o", str(tmp), str(source(name))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []

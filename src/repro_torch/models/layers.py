@@ -1,0 +1,302 @@
+"""Shared transformer building blocks: norms, RoPE, GQA attention, MLPs.
+
+The port of ``repro.models.layers``, with the same functions and the same
+parameter trees: every block is ``init_*(generator, cfg) -> Param tree``
+plus an apply function taking the plain-value tree.  Layouts are the JAX
+package's, so weights carried across compute the same layer.
+
+Full-sequence attention runs the flash attention kernel (K3) on the
+un-repeated k and v, where the JAX package runs its query-chunked jnp path
+(the same function); decode attention keeps that package's torch-op
+equivalent of ``_attend_grouped``.  Cross-attention comes with the
+encoder-decoder slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.spec import Param, init_device, param, shard_act
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg, d: int | None = None, generator=None):
+    """``generator`` only places the parameters (its device; ``None``:
+    the meta device)."""
+    d = d or cfg.d_model
+    dev = init_device(generator)
+    p = {"scale": Param(torch.ones(d, device=dev), (None,))}
+    if cfg.norm != "rmsnorm":
+        p["bias"] = Param(torch.zeros(d, device=dev), (None,))
+    return p
+
+
+def apply_norm(p, cfg, x, eps: float = 1e-5):
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (xf * p["scale"]).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _rms_head(x, scale, eps: float = 1e-6):
+    """Per-head RMS norm (qk_norm) over the trailing head_dim."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions: (S,) int -> cos, sin of shape (S, head_dim/2)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, N, hd); cos/sin: (S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def init_attention(generator, cfg):
+    hd = cfg.resolved_head_dim
+    dev = init_device(generator)
+    p = {
+        "wq": param(generator, (cfg.d_model, cfg.num_heads, hd),
+                    ("embed", "heads", None)),
+        "wk": param(generator, (cfg.d_model, cfg.num_kv_heads, hd),
+                    ("embed", "kv_heads", None)),
+        "wv": param(generator, (cfg.d_model, cfg.num_kv_heads, hd),
+                    ("embed", "kv_heads", None)),
+        "wo": param(generator, (cfg.num_heads, hd, cfg.d_model),
+                    ("heads", None, "embed"),
+                    scale=1.0 / math.sqrt(cfg.num_heads * hd)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Param(torch.zeros(cfg.num_heads, hd, device=dev),
+                        ("heads", None))
+        p["bk"] = Param(torch.zeros(cfg.num_kv_heads, hd, device=dev),
+                        ("kv_heads", None))
+        p["bv"] = Param(torch.zeros(cfg.num_kv_heads, hd, device=dev),
+                        ("kv_heads", None))
+    if cfg.qk_norm:
+        p["q_norm"] = Param(torch.ones(hd, device=dev), (None,))
+        p["k_norm"] = Param(torch.ones(hd, device=dev), (None,))
+    return p
+
+
+def _proj_qkv(p, cfg, x, kv_input):
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dnh->bsnh", kv_input, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", kv_input, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    if "q_norm" in p:
+        q = _rms_head(q, p["q_norm"])
+        k = _rms_head(k, p["k_norm"])
+    return q, k, v
+
+
+def _repeat_kv(k, num_heads: int):
+    """(B, S, Kv, hd) -> (B, S, H, hd) by group broadcast.
+
+    No path of the port calls it or ``_attend`` yet: K3 reads the
+    un-repeated k/v by head index, and decode uses ``_attend_grouped``.
+    The parity tests hold the pair to the JAX package's, whose
+    cross-attention calls them; the port's will with the encdec slice
+    (ROADMAP.md, Queue 1)."""
+    b, s, kv, hd = k.shape
+    if kv == num_heads:
+        return k
+    g = num_heads // kv
+    return k[:, :, :, None, :].expand(b, s, kv, g, hd).reshape(
+        b, s, num_heads, hd)
+
+
+def _attend(q, k, v, mask, scale: float):
+    """q: (B,Q,H,hd), k/v: (B,S,H,hd), mask: (Q,S) | (B,Q,S) | None.
+
+    Not on a path of the port yet; see ``_repeat_kv``."""
+    scores = torch.einsum("bqhe,bshe->bhqs", q, k).float() * scale
+    if mask is not None:
+        mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
+        scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshe->bqhe", w.to(v.dtype), v)
+
+
+def _attend_grouped(q, k, v, mask, scale: float):
+    """GQA attention without materialising the KV-head repeat — the decode
+    path, where cache traffic dominates.  q: (B,Q,H,hd), k/v: (B,S,Kv,hd),
+    mask: (Q,S) | None."""
+    b, qlen, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, qlen, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask[None, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(b, qlen, h, hd)
+
+
+def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
+              cache=None, cache_index=None, use_rope: bool = True):
+    """Multi-head GQA self-attention.
+
+    Modes:
+      * full-sequence (train / prefill): ``cache is None``; ``positions``
+        is ``arange(S)`` (the kernel counts query and key positions from
+        0).  Returns (out, (k, v)).
+      * decode: ``cache = (k, v, kv_pos)`` with k/v (B, S_cache, Kv, hd)
+        and kv_pos (S_cache,) absolute positions (-1 = empty slot); x is
+        (B, 1, D) and ``cache_index`` (an int) the new token's absolute
+        position.  RoPE is applied *before* caching so a ring buffer
+        (sliding window) stays correct.  The new k, v and position are
+        written into the cache tensors in place (the JAX package returns
+        updated copies); the same tensors are returned.
+    """
+    if cache is not None and len(cache) == 2:
+        raise NotImplementedError(
+            "cross-attention comes with the encoder-decoder slice "
+            "(ROADMAP.md, Queue 1 item 8)")
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = _proj_qkv(p, cfg, x, x)
+
+    if cache is not None:
+        ck, cv, kv_pos = cache
+        s_cache = ck.shape[1]
+        if use_rope:
+            pos1 = torch.full((1,), cache_index, dtype=torch.int32,
+                              device=x.device)
+            cos, sin = rope_cos_sin(pos1, hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        slot = (cache_index % s_cache if window
+                else min(cache_index, s_cache - 1))
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        kv_pos[slot] = cache_index
+        m = (kv_pos >= 0) & (kv_pos <= cache_index)
+        if window:
+            m = m & (kv_pos > cache_index - window)
+        out = _attend_grouped(q, ck.to(q.dtype), cv.to(q.dtype),
+                              m[None, :].expand(q.shape[1], -1), scale)
+        y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+        return shard_act(y, "batch", "seq", None), (ck, cv, kv_pos)
+
+    if positions.shape != (x.shape[1],):
+        raise ValueError(f"positions must be arange(S) of shape "
+                         f"({x.shape[1]},), got {tuple(positions.shape)}")
+    if use_rope:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    q = shard_act(q, "batch", "seq", "heads", None)
+    k = shard_act(k, "batch", "seq", "kv_heads", None)
+    v = shard_act(v, "batch", "seq", "kv_heads", None)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=causal, window=window)
+    out = shard_act(out, "batch", "seq", "heads", None)
+    y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+    return shard_act(y, "batch", "seq", None), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator, cfg, d_ff: int | None = None):
+    d_ff = d_ff or cfg.d_ff
+    p = {
+        "w_up": param(generator, (cfg.d_model, d_ff), ("embed", "mlp")),
+        "w_down": param(generator, (d_ff, cfg.d_model), ("mlp", "embed"),
+                        scale=1.0 / math.sqrt(d_ff)),
+    }
+    if cfg.act == "swiglu":
+        p["w_gate"] = param(generator, (cfg.d_model, d_ff),
+                            ("embed", "mlp"))
+    return p
+
+
+def mlp_act(cfg, up, gate=None):
+    if cfg.act == "swiglu":
+        return F.silu(gate) * up
+    if cfg.act == "gelu":
+        return F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    if cfg.act == "relu2":
+        return F.relu(up).square()
+    raise ValueError(cfg.act)
+
+
+def apply_mlp(p, cfg, x):
+    h = x @ p["w_up"].to(x.dtype)
+    g = x @ p["w_gate"].to(x.dtype) if cfg.act == "swiglu" else None
+    h = shard_act(mlp_act(cfg, h, g), "batch", "seq", "mlp")
+    return shard_act(h @ p["w_down"].to(x.dtype), "batch", "seq", None)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(generator, cfg):
+    return {
+        "table": param(generator, (cfg.padded_vocab, cfg.d_model),
+                       ("vocab", "embed"), scale=0.02),
+    }
+
+
+def embed_tokens(p, cfg, tokens, dtype):
+    y = p["table"][tokens.long()].to(dtype)
+    return shard_act(y, "batch", "seq", None)
+
+
+def init_lm_head(generator, cfg):
+    if cfg.tie_embeddings:
+        return {}
+    return {
+        "w": param(generator, (cfg.d_model, cfg.padded_vocab),
+                   ("head_embed", "head_vocab"),
+                   scale=1.0 / math.sqrt(cfg.d_model)),
+    }
+
+
+def lm_logits(head_p, embed_p, cfg, x):
+    if cfg.tie_embeddings:
+        logits = x @ embed_p["table"].to(x.dtype).T
+    else:
+        logits = x @ head_p["w"].to(x.dtype)
+    return shard_act(logits, "batch", "seq", "head_vocab")

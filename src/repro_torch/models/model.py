@@ -1,0 +1,173 @@
+"""Model factory: one API over the architecture families the port runs.
+
+The port of ``repro.models.model`` for the serving path.  ``build_model(cfg)``
+returns a ``ModelApi`` with:
+
+  init(generator)              -> Param tree on the generator's device
+  forward_features(params, batch) -> (logits, aux, features)
+  head_logits(params, features)   -> logits
+  prefill(params, batch)       -> (logits, cache)
+  decode_step(params, cache, token, index) -> (logits, cache)
+  init_cache(batch, cache_len) -> cache tree
+  batch_spec(shape)            -> {name: (shape, dtype)} of the inputs
+
+Families ``dense`` (``transformer``) and ``ssm`` (``rwkv``) are ported;
+``moe``, ``hybrid``, ``encdec`` and ``vlm`` raise ``NotImplementedError``,
+and ``train_loss`` comes with the training slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv, transformer
+from repro_torch.sharding.spec import values_tree
+from repro_torch.tree import as_tensor, tree_flatten
+
+_LATER = {
+    "moe": "Queue 1 item 8 (moe.py)",
+    "hybrid": "Queue 1 item 8 (mamba.py, hybrid.py) and Queue 2 K4",
+    "encdec": "Queue 1 item 8 (encdec.py)",
+    "vlm": "Queue 1 item 8 (the vlm input of transformer.py)",
+}
+
+
+def lm_loss(logits, labels, mask):
+    """Token-mean masked cross-entropy; labels: (B,S) int, mask (B,S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+@dataclass
+class ModelApi:
+    cfg: ArchConfig
+    init: Callable[..., Any]
+    forward_features: Callable[..., Any]   # pre-head hidden states
+    head_logits: Callable[..., Any]        # features -> logits
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Any]
+    batch_spec: Callable[..., Any]
+
+
+def _module(cfg: ArchConfig):
+    family = "moe" if cfg.is_moe else cfg.family
+    if family in _LATER:
+        raise NotImplementedError(
+            f"family {family!r} ({cfg.name}) comes with a later slice of "
+            f"the port: ROADMAP.md, {_LATER[family]}")
+    if family == "dense":
+        return transformer
+    if family == "ssm":
+        return rwkv
+    raise ValueError(f"no LM assembly for family {cfg.family!r}")
+
+
+def build_model(cfg: ArchConfig, *,
+                compute_dtype=torch.bfloat16) -> ModelApi:
+    mod = _module(cfg)
+
+    def init(generator):
+        return mod.init_model(generator, cfg)
+
+    def forward_features(params, batch, *, window=None,
+                         compute_logits=True):
+        return mod.forward_train(params, cfg, batch["tokens"],
+                                 dtype=compute_dtype, window=window,
+                                 compute_logits=compute_logits)
+
+    def head_logits(params, feats):
+        return L.lm_logits(params["head"], params["embed"], cfg, feats)
+
+    def prefill(params, batch, *, window=None, cache_len=None):
+        return mod.prefill(params, cfg, batch["tokens"], dtype=compute_dtype,
+                           window=window, cache_len=cache_len)
+
+    def decode_step(params, cache, token, index, *, window=None):
+        return mod.decode_step(params, cfg, cache, token, index,
+                               dtype=compute_dtype, window=window)
+
+    def init_cache(batch, cache_len, *, window=None, device="cuda"):
+        return mod.init_cache(cfg, batch, cache_len, window=window,
+                              dtype=compute_dtype,
+                              device=resolve_device(device))
+
+    def batch_spec(shape: InputShape, *, global_batch=None):
+        b = global_batch or shape.global_batch
+        spec = {"tokens": ((b, shape.seq_len), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = ((b, shape.seq_len), torch.int32)
+            spec["mask"] = ((b, shape.seq_len), torch.float32)
+        return spec
+
+    return ModelApi(cfg=cfg, init=init, forward_features=forward_features,
+                    head_logits=head_logits, prefill=prefill,
+                    decode_step=decode_step, init_cache=init_cache,
+                    batch_spec=batch_spec)
+
+
+def _shapes(cfg: ArchConfig) -> dict:
+    """{path: (shape, dtype)} of the model's values, made on the meta
+    device (nothing allocated)."""
+    leaves, tdef = tree_flatten(values_tree(_module(cfg).init_model(None,
+                                                                    cfg)))
+    return dict(zip(_paths(tdef), ((tuple(x.shape), x.dtype)
+                                   for x in leaves)))
+
+
+def _paths(tdef, prefix=""):
+    if tdef.kind == "leaf":
+        return [prefix]
+    keys = tdef.keys if tdef.kind is dict else range(len(tdef.children))
+    return [p for k, c in zip(keys, tdef.children)
+            for p in _paths(c, f"{prefix}/{k}")]
+
+
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
+    """The number of parameters of the real init, counted on the meta
+    device.  ``active_only`` matters only for MoE (not ported)."""
+    total = 0
+    for shape, _ in _shapes(cfg).values():
+        n = 1
+        for dim in shape:
+            n *= dim
+        total += n
+    return total
+
+
+def params_from_numpy(cfg: ArchConfig, tree, device="cuda"):
+    """A JAX values tree (``values_tree`` of the JAX package's init, as
+    numpy; bf16 as numpy's bfloat16 or through the int16 view of
+    ``repro_torch.tree``) as the port's tree of tensors on ``device``.
+    Every key, shape and dtype is checked against the port's own init; a
+    mismatch raises ``ValueError``."""
+    dev = resolve_device(device)
+    want = _shapes(cfg)
+    leaves, tdef = tree_flatten(tree)
+    got = dict(zip(_paths(tdef), leaves))
+    if set(got) != set(want):
+        raise ValueError(
+            f"param keys differ from {cfg.name}'s: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}")
+    out = []
+    for path, leaf in got.items():
+        t = as_tensor(leaf)
+        if (tuple(t.shape), t.dtype) != want[path]:
+            raise ValueError(
+                f"{path}: got {tuple(t.shape)} {t.dtype}, {cfg.name} has "
+                f"{want[path][0]} {want[path][1]}")
+        out.append(t.to(dev))
+    return tdef.unflatten(out)
+
+
+__all__ = ["ModelApi", "build_model", "count_params_analytic", "lm_loss",
+           "params_from_numpy"]

@@ -1,0 +1,191 @@
+"""Decoder-only transformer assembly, the dense family.
+
+The port of ``repro.models.transformer`` for ``family="dense"``.  Layer
+parameters keep the JAX package's *stacked* layout (a leading ``layers``
+axis on every leaf of ``params["blocks"]``), so a JAX tree carries across
+leaf for leaf; the forward pass loops over the stack in Python where the
+JAX package scans.  A MoE block or a ``vlm`` input is refused.
+
+Modes:
+  * ``forward_train``: full sequence, returns (logits, aux_loss, features);
+    a forward pass (the kernels have no backward)
+  * ``prefill``: full sequence, returns (logits_last, cache)
+  * ``decode_step``: one token against a KV cache (ring buffer when a
+    sliding window is configured), updated in place
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.sharding.spec import Param
+from repro_torch.tree import tree_flatten, tree_map
+
+_NOT_PORTED = ("{} comes with a later slice of the port (ROADMAP.md, "
+               "Queue 1 item 8)")
+
+
+def _check_family(cfg):
+    if cfg.is_moe:
+        raise NotImplementedError(_NOT_PORTED.format("the MoE block"))
+    if cfg.family == "vlm":
+        raise NotImplementedError(_NOT_PORTED.format("the vlm input"))
+
+
+def stack_layer_axes(tree):
+    """Prepend the 'layers' logical axis to every Param of a stack."""
+    return tree_map(lambda p: Param(p.value, ("layers",) + p.axes), tree)
+
+
+def stack_layers(init_one, n: int):
+    """``n`` blocks of ``init_one()`` stacked on a leading axis, each leaf
+    written into one preallocated tensor (peak memory: the stack and one
+    block), with the 'layers' axis prepended."""
+    first = init_one()
+    leaves, tdef = tree_flatten(first)
+    stacked = [torch.empty((n,) + tuple(p.value.shape), dtype=p.value.dtype,
+                           device=p.value.device) for p in leaves]
+    for i in range(n):
+        block = leaves if i == 0 else tdef.flatten_up_to(init_one())
+        for dst, p in zip(stacked, block):
+            dst[i].copy_(p.value)
+    return stack_layer_axes(tdef.unflatten(
+        [Param(v, p.axes) for v, p in zip(stacked, leaves)]))
+
+
+def layer(blocks, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return tree_map(lambda x: x[i], blocks)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_block(generator, cfg):
+    _check_family(cfg)
+    return {
+        "attn_norm": L.init_norm(cfg, generator=generator),
+        "attn": L.init_attention(generator, cfg),
+        "ffn_norm": L.init_norm(cfg, generator=generator),
+        "mlp": L.init_mlp(generator, cfg),
+    }
+
+
+def init_model(generator, cfg):
+    """-> Param tree of the dense decoder on ``generator``'s device (the
+    meta device for ``None``)."""
+    return {
+        "embed": L.init_embedding(generator, cfg),
+        "blocks": stack_layers(lambda: init_block(generator, cfg),
+                               cfg.num_layers),
+        "final_norm": L.init_norm(cfg, generator=generator),
+        "head": L.init_lm_head(generator, cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(bp, cfg, x, *, positions, window, cache=None,
+                 cache_index=None):
+    h, new_cache = L.attention(
+        bp["attn"], cfg, L.apply_norm(bp["attn_norm"], cfg, x),
+        positions=positions, window=window, cache=cache,
+        cache_index=cache_index)
+    x = x + h
+    hn = L.apply_norm(bp["ffn_norm"], cfg, x)
+    return x + L.apply_mlp(bp["mlp"], cfg, hn), new_cache
+
+
+def _embed_inputs(params, cfg, tokens, patches, dtype):
+    if patches is not None or cfg.family == "vlm":
+        raise NotImplementedError(_NOT_PORTED.format("the vlm input"))
+    return L.embed_tokens(params["embed"], cfg, tokens, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def forward_train(params, cfg, tokens, *, patches=None,
+                  dtype=torch.bfloat16, window=None, compute_logits=True):
+    """tokens: (B, S).  Returns (logits, aux_loss, features): ``features``
+    are the pre-head hidden states (the paper's split point)."""
+    window = cfg.sliding_window if window is None else window
+    x = _embed_inputs(params, cfg, tokens, patches, dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, _ = _apply_block(layer(params["blocks"], i), cfg, x,
+                            positions=positions, window=window)
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
+              if compute_logits else None)
+    return logits, torch.zeros((), device=x.device), x
+
+
+def init_cache(cfg, batch: int, cache_len: int, *, window=None,
+               dtype=torch.bfloat16, device="cpu"):
+    window = cfg.sliding_window if window is None else window
+    size = min(window, cache_len) if window else cache_len
+    shape = (cfg.num_layers, batch, size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((cfg.num_layers, size), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
+            window=None, cache_len: int | None = None):
+    """Full-sequence forward that also builds the KV cache.
+
+    Returns (last_logits (B,1,V), cache).  The cache covers positions
+    [0, S) (ring-compressed to the window if one is set)."""
+    window = cfg.sliding_window if window is None else window
+    x = _embed_inputs(params, cfg, tokens, patches, dtype)
+    b, s, _ = x.shape
+    cache_len = cache_len or s
+    cache = init_cache(cfg, b, cache_len, window=window, dtype=dtype,
+                       device=x.device)
+    size = cache["pos"].shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    if size < s:  # keep the trailing window, ring-ordered by position
+        keep = positions[s - size:]
+        slots = (keep % size).long()
+    else:
+        keep, slots = positions, torch.arange(s, device=x.device)
+    for i in range(cfg.num_layers):
+        x, (k, v) = _apply_block(layer(params["blocks"], i), cfg, x,
+                                 positions=positions, window=window)
+        cache["k"][i][:, slots] = k[:, s - len(keep):].to(dtype)
+        cache["v"][i][:, slots] = v[:, s - len(keep):].to(dtype)
+        cache["pos"][i][slots] = keep
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = L.lm_logits(params["head"], params["embed"], cfg, x[:, -1:])
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, token, index: int, *,
+                dtype=torch.bfloat16, window=None):
+    """token: (B, 1) int; index: the token's absolute position (an int).
+
+    Returns (logits (B,1,V), cache): the cache is updated in place."""
+    window = cfg.sliding_window if window is None else window
+    x = L.embed_tokens(params["embed"], cfg, token, dtype)
+    positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, _ = _apply_block(
+            layer(params["blocks"], i), cfg, x, positions=positions,
+            window=window,
+            cache=(cache["k"][i], cache["v"][i], cache["pos"][i]),
+            cache_index=index)
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = L.lm_logits(params["head"], params["embed"], cfg, x)
+    return logits, cache

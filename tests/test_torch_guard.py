@@ -37,16 +37,31 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
-#: The fabric modules the port carries as byte copies (the only change is
-#: ``repro.`` -> ``repro_torch.`` in import lines).
+#: Modules the guard must have imported (a subpackage that fails to be
+#: walked would otherwise go unchecked).
+SLICE_MODULES = (
+    "configs.base", "configs.qwen3_4b", "configs.rwkv6_1_6b",
+    "configs.jamba_1_5_large_398b", "sharding.spec", "models.layers",
+    "models.transformer", "models.rwkv", "models.model", "launch.serve",
+    "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+    "kernels.rwkv6.ops", "kernels.rwkv6.ref")
+
+#: The modules the port carries as byte copies (the only change is
+#: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
 COPIES = ("configs/paper_cnn.py", "core/wire.py", "core/tickets.py",
           "core/distributor.py", "core/shards.py", "core/federation.py",
-          "core/transport.py", "data/synthetic.py")
+          "core/transport.py", "data/synthetic.py", "configs/base.py",
+          "configs/command_r_35b.py", "configs/dbrx_132b.py",
+          "configs/internvl2_26b.py", "configs/jamba_1_5_large_398b.py",
+          "configs/minitron_4b.py", "configs/qwen1_5_0_5b.py",
+          "configs/qwen3_4b.py", "configs/qwen3_moe_30b_a3b.py",
+          "configs/rwkv6_1_6b.py", "configs/whisper_small.py")
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.MULTILINE)
+_IMPORT_MODULE = re.compile(r"(import_module\(f?[\"'])repro\.")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
@@ -54,7 +69,9 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 25      # every module was imported
+    imported = set(out.stdout.split())
+    assert len(imported) >= 58                    # every module was imported
+    assert {f"repro_torch.{m}" for m in SLICE_MODULES} <= imported
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -63,7 +80,8 @@ def test_fabric_copy_differs_from_its_original_only_in_import_prefix(rel):
         original = f.read()
     with open(os.path.join(SRC, "repro_torch", rel)) as f:
         copy = f.read()
-    assert copy == _IMPORT.sub(r"\1repro_torch.", original)
+    renamed = _IMPORT.sub(r"\1repro_torch.", original)
+    assert copy == _IMPORT_MODULE.sub(r"\1repro_torch.", renamed)
 
 
 def _entry_points():
@@ -85,6 +103,11 @@ def _entry_points():
                            np.zeros((), np.int32))
         return FederatedTrainingLoop(FederatedTrainer(Dist()), None, state)
 
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    lm = get_smoke_config("rwkv6-1.6b")
     return {
         "resolve_device": lambda: resolve_device(),
         "init_cnn": lambda: cnn.init_cnn(torch.Generator(), ccfg),
@@ -92,12 +115,17 @@ def _entry_points():
             {"w": np.zeros(3, np.float32)}),
         "CnnGradShard": lambda: cnn.CnnGradShard(ccfg),
         "FederatedTrainingLoop": loop,
+        "lm_params_from_numpy": lambda: model.params_from_numpy(lm, {}),
+        "lm_init_cache": lambda: model.build_model(lm).init_cache(1, 8),
+        "serve_main": lambda: serve.main(["--smoke"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_cnn",
                                    "params_from_numpy", "CnnGradShard",
-                                   "FederatedTrainingLoop"])
+                                   "FederatedTrainingLoop",
+                                   "lm_params_from_numpy", "lm_init_cache",
+                                   "serve_main"])
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
                                                           entry):
     from dataclasses import fields

@@ -1,0 +1,318 @@
+"""The port's LM layers, models and serving loop against the JAX package,
+on the CPU.
+
+Weights are the JAX package's own init, carried across as numpy
+(``params_from_numpy``); inputs are numpy arrays from a seed fed to both.
+Attention in the port runs its flash-attention wrapper and the RWKV
+recurrence its WKV wrapper, here on their plain versions.  Everything is in
+f32, and every comparison uses the JAX package's own bar for the attention
+layer (``test_flash_attention_matches_model_attention_layer``): atol 2e-4,
+rtol 1e-3.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch_config as jax_arch_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.launch.serve import generate as jax_generate
+from repro.models import layers as JL
+from repro.models.model import build_model as jax_build_model
+from repro.models.model import count_params_analytic as jax_count_params
+from repro.models.model import lm_loss as jax_lm_loss
+from repro.sharding.spec import values_tree as jax_values_tree
+from repro_torch.configs import get_arch_config, get_smoke_config
+from repro_torch.launch.serve import generate
+from repro_torch.models import layers as L
+from repro_torch.models.model import (build_model, count_params_analytic,
+                                      lm_loss, params_from_numpy)
+from repro_torch.tree import tree_as_tensors
+
+TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _init(init_fn, seed=0):
+    """The values tree of a JAX init, jitted (eager init dispatches one
+    small computation per op, which costs seconds on the CPU)."""
+    return _np(jax.jit(lambda k: jax_values_tree(init_fn(k)))(
+        jax.random.PRNGKey(seed)))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+def _perturbed(tree, rng):
+    """A values tree with every leaf moved off its init (norm scales of 1
+    and biases of 0 would hide a missing term)."""
+    return jax.tree_util.tree_map(
+        lambda x: (x + rng.normal(size=x.shape) * 0.05).astype(np.float32),
+        tree)
+
+
+# --- layers ------------------------------------------------------------------
+
+#: (arch, window): GQA + qk-norm; MHA + qkv-bias + tied head; GQA +
+#: layernorm + relu2 with a sliding window
+LAYER_CASES = [("qwen3-4b", 0), ("qwen1.5-0.5b", 0), ("minitron-4b", 6)]
+
+
+@pytest.mark.parametrize("arch,window", LAYER_CASES)
+def test_attention_full_sequence_matches_jax(arch, window):
+    cfg = jax_smoke_config(arch)
+    rng = np.random.default_rng(1)
+    p = _perturbed(_init(lambda k: JL.init_attention(k, cfg)), rng)
+    x = rng.normal(size=(2, 24, cfg.d_model)).astype(np.float32)
+    pos = np.arange(24, dtype=np.int32)
+    y1, (k1, v1) = jax.jit(lambda p, x, pos: JL.attention(
+        p, cfg, x, positions=pos, window=window))(p, x, pos)
+    y2, (k2, v2) = L.attention(tree_as_tensors(p), get_smoke_config(arch),
+                               torch.from_numpy(x),
+                               positions=torch.from_numpy(pos),
+                               window=window)
+    _close(y2, y1)
+    _close(k2, k1)
+    _close(v2, v1)
+
+
+@pytest.mark.parametrize("arch,window", LAYER_CASES)
+def test_attention_decode_matches_jax(arch, window):
+    """One token against a cache with empty slots (-1); with a window the
+    cache is a ring and the slot wraps."""
+    cfg = jax_smoke_config(arch)
+    rng = np.random.default_rng(2)
+    p = _perturbed(_init(lambda k: JL.init_attention(k, cfg)), rng)
+    size, index = (window, 9) if window else (12, 7)
+    shape = (2, size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    ck, cv = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    kv_pos = (np.arange(size, dtype=np.int32) if not window
+              else np.array([6, 7, 8, 3, 4, 5], np.int32))
+    if not window:
+        kv_pos[index:] = -1
+    x = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    y1, (ck1, cv1, pos1) = jax.jit(lambda p, x, cache: JL.attention(
+        p, cfg, x, positions=jnp.full((1,), index, jnp.int32),
+        window=window, cache=cache, cache_index=index))(p, x,
+                                                        (ck, cv, kv_pos))
+    cache = tuple(torch.from_numpy(a.copy()) for a in (ck, cv, kv_pos))
+    y2, (ck2, cv2, pos2) = L.attention(
+        tree_as_tensors(p), get_smoke_config(arch), torch.from_numpy(x),
+        positions=torch.full((1,), index, dtype=torch.int32), window=window,
+        cache=cache, cache_index=index)
+    assert ck2 is cache[0] and pos2 is cache[2]     # updated in place
+    _close(y2, y1)
+    _close(ck2, ck1)
+    _close(cv2, cv1)
+    np.testing.assert_array_equal(pos2.numpy(), np.asarray(pos1))
+
+
+def test_dense_attend_and_grouped_attend_match_jax():
+    """The two softmax-attention helpers on their own, with a mask: the
+    repeated-KV form and the grouped (decode) form."""
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(2, 5, 8, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 9, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    mask = rng.uniform(size=(5, 9)) > 0.3
+    mask[:, 0] = True
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    _close(L._attend(tq, L._repeat_kv(tk, 8), L._repeat_kv(tv, 8), tm, 0.2),
+           JL._attend(jq, JL._repeat_kv(jk, 8), JL._repeat_kv(jv, 8), jm,
+                      0.2))
+    _close(L._attend_grouped(tq, tk, tv, tm, 0.2),
+           JL._attend_grouped(jq, jk, jv, jm, 0.2))
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norms_match_jax(norm):
+    cfg = dataclasses.replace(jax_smoke_config("qwen3-4b"), norm=norm)
+    rng = np.random.default_rng(3)
+    p = _perturbed(_np(jax_values_tree(JL.init_norm(cfg))), rng)
+    x = rng.normal(size=(2, 5, cfg.d_model)).astype(np.float32) * 3
+    _close(L.apply_norm(tree_as_tensors(p), cfg, torch.from_numpy(x)),
+           JL.apply_norm(p, cfg, jnp.asarray(x)))
+    head = x.reshape(2, 5, 4, 64)
+    scale = p["scale"][:64]
+    _close(L._rms_head(torch.from_numpy(head), torch.from_numpy(scale)),
+           JL._rms_head(jnp.asarray(head), jnp.asarray(scale)))
+
+
+def test_rope_matches_jax():
+    rng = np.random.default_rng(4)
+    pos = np.arange(600, dtype=np.int32)
+    cos1, sin1 = JL.rope_cos_sin(jnp.asarray(pos), 128, 1e6)
+    cos2, sin2 = L.rope_cos_sin(torch.from_numpy(pos), 128, 1e6)
+    _close(cos2, cos1, atol=1e-5, rtol=0)
+    _close(sin2, sin1, atol=1e-5, rtol=0)
+    x = rng.normal(size=(2, 600, 3, 128)).astype(np.float32)
+    _close(L.apply_rope(torch.from_numpy(x), cos2, sin2),
+           JL.apply_rope(jnp.asarray(x), cos1, sin1))
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu", "relu2"])
+def test_mlp_matches_jax(act):
+    cfg = dataclasses.replace(jax_smoke_config("qwen3-4b"), act=act)
+    rng = np.random.default_rng(5)
+    p = _init(lambda k: JL.init_mlp(k, cfg), seed=1)
+    x = rng.normal(size=(2, 7, cfg.d_model)).astype(np.float32)
+    _close(L.apply_mlp(tree_as_tensors(p), cfg, torch.from_numpy(x)),
+           JL.apply_mlp(p, cfg, jnp.asarray(x)))
+
+
+# --- models ------------------------------------------------------------------
+
+B, S, GEN = 2, 12, 3
+
+
+@pytest.fixture(scope="module", params=["qwen3-4b", "rwkv6-1.6b"])
+def served(request):
+    """The JAX side of one smoke model, run once: params, prompts, prefill,
+    GEN decode steps along the greedy tokens, and ``generate``."""
+    cfg = jax_smoke_config(request.param)
+    api = jax_build_model(cfg, compute_dtype=jnp.float32, remat=False)
+    params = _init(api.init)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    logits, cache = jax.jit(lambda p, t: api.prefill(
+        p, {"tokens": t}, cache_len=S + GEN))(params, jnp.asarray(prompts))
+    steps = [(logits, _np(cache))]
+    step = jax.jit(api.decode_step)
+    for i in range(GEN):
+        tok = jnp.argmax(logits[:, :, :cfg.vocab_size], -1).astype(jnp.int32)
+        logits, cache = step(params, cache, tok, jnp.int32(S + i))
+        steps.append((logits, _np(cache)))
+    toks = jax_generate(api, params, jnp.asarray(prompts), gen=GEN)
+    feats = jax.jit(api.forward_features)(params,
+                                          {"tokens": jnp.asarray(prompts)})
+    port_cfg = get_smoke_config(request.param)
+    return dict(arch=request.param, cfg=port_cfg, prompts=prompts,
+                np_params=params, steps=steps,
+                toks=np.asarray(toks), features=feats,
+                api=build_model(port_cfg, compute_dtype=torch.float32),
+                params=params_from_numpy(port_cfg, params, device="cpu"))
+
+
+def _tokens(a):
+    return torch.from_numpy(np.asarray(a)).to(torch.int32)
+
+
+def test_prefill_and_decode_steps_match_jax(served):
+    """Prefill logits and cache, then GEN decode steps (each logits and the
+    whole cache after it) along the same greedy tokens."""
+    api, params, cfg = served["api"], served["params"], served["cfg"]
+    logits, cache = api.prefill(params, {"tokens": _tokens(
+        served["prompts"])}, cache_len=S + GEN)
+    for i, (want_logits, want_cache) in enumerate(served["steps"]):
+        _close(logits, want_logits)
+        assert set(cache) == set(want_cache)
+        for key in cache:
+            _close(cache[key], want_cache[key])
+        if i == GEN:
+            break
+        tok = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        logits, cache = api.decode_step(params, cache, tok, S + i)
+
+
+def test_forward_features_matches_jax(served):
+    api, params = served["api"], served["params"]
+    logits, aux, feats = api.forward_features(
+        params, {"tokens": _tokens(served["prompts"])})
+    want_logits, want_aux, want_feats = served["features"]
+    _close(logits, want_logits)
+    _close(feats, want_feats)
+    assert float(aux) == float(want_aux) == 0.0
+    assert torch.equal(api.head_logits(params, feats), logits)
+
+
+def test_generate_matches_jax_generate(served):
+    toks = generate(served["api"], served["params"],
+                    _tokens(served["prompts"]), gen=GEN)
+    assert toks.dtype == torch.int32
+    np.testing.assert_array_equal(toks.numpy(), served["toks"])
+
+
+def test_generate_matches_teacher_forced_forward(served):
+    """The port's own version of ``tests/test_serve.py``'s check, at every
+    generated position: the greedy tokens are the argmax of one full
+    forward over prompt + generated tokens (causal, so each position sees
+    only its past)."""
+    api, params, cfg = served["api"], served["params"], served["cfg"]
+    prompts = _tokens(served["prompts"])
+    toks = generate(api, params, prompts, gen=GEN)
+    logits, _, _ = api.forward_features(
+        params, {"tokens": torch.cat([prompts, toks], 1)})
+    picked = logits[:, S - 1:S + GEN - 1, :cfg.vocab_size].argmax(-1)
+    np.testing.assert_array_equal(picked.numpy(), toks.numpy())
+
+
+def test_params_from_numpy_checks_keys_shapes_and_dtypes(served):
+    cfg, tree = served["cfg"], served["np_params"]
+    extra = dict(tree, stray={"w": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="unexpected"):
+        params_from_numpy(cfg, extra, device="cpu")
+    table = tree["embed"]["table"]
+    for bad in (table[:-1], table.astype(np.float64)):
+        with pytest.raises(ValueError, match="/embed/table"):
+            params_from_numpy(cfg, dict(tree, embed={"table": bad}),
+                              device="cpu")
+
+
+def test_generate_through_a_sliding_window_ring_matches_jax():
+    """A prompt longer than the window: prefill keeps a ring of the last
+    ``window`` positions and decode wraps around it."""
+    jcfg = dataclasses.replace(jax_smoke_config("minitron-4b"),
+                               sliding_window=8)
+    cfg = dataclasses.replace(get_smoke_config("minitron-4b"),
+                              sliding_window=8)
+    api = jax_build_model(jcfg, compute_dtype=jnp.float32, remat=False)
+    params = _init(api.init)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 16)).astype(np.int32)
+    want = jax_generate(api, params, jnp.asarray(prompts), gen=6)
+    got = generate(build_model(cfg, compute_dtype=torch.float32),
+                   params_from_numpy(cfg, params, device="cpu"),
+                   _tokens(prompts), gen=6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_lm_loss_and_batch_spec_match_jax():
+    rng = np.random.default_rng(7)
+    logits = rng.normal(size=(2, 6, 50)).astype(np.float32) * 3
+    labels = rng.integers(0, 50, (2, 6)).astype(np.int32)
+    mask = (rng.uniform(size=(2, 6)) > 0.3).astype(np.float32)
+    _close(lm_loss(*map(torch.from_numpy, (logits, labels, mask))),
+           jax_lm_loss(*map(jnp.asarray, (logits, labels, mask))))
+    from repro.configs import INPUT_SHAPES as JAX_SHAPES
+    from repro_torch.configs import INPUT_SHAPES
+    want = jax_build_model(jax_smoke_config("qwen3-4b")).batch_spec(
+        JAX_SHAPES["train_4k"], global_batch=8)
+    got = build_model(get_smoke_config("qwen3-4b")).batch_spec(
+        INPUT_SHAPES["train_4k"], global_batch=8)
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} \
+        == {k: (shape, str(dtype).split(".")[1])
+            for k, (shape, dtype) in got.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
+def test_param_count_matches_jax_at_full_size(arch):
+    cfg = get_arch_config(arch)
+    assert count_params_analytic(cfg) == jax_count_params(
+        jax_arch_config(arch))
+    assert cfg.param_count() == count_params_analytic(cfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
+                                  "whisper-small", "internvl2-26b"])
+def test_families_of_later_slices_are_refused(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_model(get_smoke_config(arch))
