@@ -9,7 +9,7 @@ Phases, one line each:
 
   1. environment: versions, the card, ``nvidia-smi`` name and power limit;
      TF32 off and cuDNN deterministic, so the checks below are exact;
-  2. build: the four CUDA kernels from the checkout's sources (nvcc, first
+  2. build: the five CUDA kernels from the checkout's sources (nvcc, first
      use, all at once);
   3. each kernel against its plain PyTorch version on the card, over edge
      and main-path sizes: K1, K2 and K5 (WKV) bitwise, K3 (flash
@@ -18,6 +18,9 @@ Phases, one line each:
      beside the card's bound (K1, K2 also as a caller that issues one
      call at a time waits for them, ``unheld``; K3 also beside PyTorch's
      ``scaled_dot_product_attention``, which nothing on the path calls);
+     3c. K4 (the Mamba selective scan) likewise: bitwise wherever its exp
+     is bitwise equal to ``torch.exp`` (a case isolates the exp), else
+     within ``_tol``;
   4. the Fig. 3 path at full width: the FIG4 CNN (609,258 params) trained
      through a FederatedDistributor behind a TransportServer with 3 remote
      v2-wire clients on loopback, K-of-N reticket barrier, FusedServerStep
@@ -34,7 +37,14 @@ Phases, one line each:
      early) must fail the served-vs-forward check;
   7. the same for rwkv6-1.6b, with one K5 launch per layer of the prefill
      and of each decode step; its planted fault drops the WKV state the
-     prefill hands over.
+     prefill hands over;
+  8. the same for jamba-1.5-large-398b at every published width, cut to 2
+     layers (a Mamba layer with a dense FFN, then an attention layer with
+     the 16-expert MoE FFN): one K4 launch for the prefill and one for
+     each decode step, one K3 launch; the MoE's dropped assignments are
+     counted in both passes (a batch row that a drop touched is left out
+     of the comparison); its planted fault drops the SSM state the prefill
+     hands over.
 
 The launch counts of each kernel are set to 0 just before the path that
 runs it and read just after.  The line before the last is one JSON object
@@ -45,6 +55,7 @@ exits non-zero and prints no result; so does a host without CUDA.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -67,11 +78,14 @@ from repro_torch.kernels.adagrad.ops import adagrad_update  # noqa: E402
 from repro_torch.kernels.adagrad.ref import adagrad_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba.ops import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
-from repro_torch.models import cnn, layers, rwkv  # noqa: E402
+from repro_torch.models import cnn, hybrid, layers, mamba, rwkv  # noqa: E402
+from repro_torch.models.moe import dispatch_load  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM3 bytes/s and f32 (non-tensor-core)
@@ -94,7 +108,8 @@ QUICKSTART_LR = 0.02
 #: tests/test_kernels.py::_tol: the bars K3 and K5 are held to
 TOL_F32 = dict(atol=3e-5, rtol=1e-4)
 TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
-#: K5 is held to its plain version bit for bit
+#: K5, and K4 where its exp agrees, are held to their plain versions bit
+#: for bit
 BITWISE = dict(atol=0.0, rtol=0.0)
 #: test_flash_attention_sweep's grid (b, s, hq, hkv, hd), plus a sequence
 #: that no 64-row tile divides
@@ -103,19 +118,26 @@ K3_SHAPES = ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
 K3_MASKS = ((True, 0), (False, 0), (True, 64))
 #: test_rwkv6_wkv_sweep's grid (b, t, h, hd)
 K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32))
+#: test_mamba_scan_sweep's grid (b, t, di, ds)
+K4_SHAPES = ((1, 64, 512, 16), (2, 96, 1024, 8), (1, 64, 512, 32))
 #: the serve path: batch, prompt length, new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
 #: served logits against the teacher-forced forward over the same tokens,
 #: per architecture: the same f32 model, once as 1 + SERVE_GEN incremental
 #: steps (decode attention in torch ops, matrix products of 4 rows) and
-#: once as one full forward (K3 or one K5 call over the whole sequence,
-#: products of 2112 rows), so only the rounding of f32 sums differs.  The
-#: largest gaps seen are 2.65e-5 (qwen3-4b) and 9.13e-4 (rwkv6-1.6b, whose
-#: slowest decay, ~0.993 a step, carries the rounding through ~150 steps
-#: of state; PERF.md).  Each phase also plants a fault and requires
-#: the same check to fail on it.
+#: once as one full forward (K3, or one K4 or K5 call, over the whole
+#: sequence, products of 2112 rows), so only the rounding of f32 sums
+#: differs.  The largest gaps seen are 2.65e-5 (qwen3-4b), 9.13e-4
+#: (rwkv6-1.6b, whose slowest decay, ~0.993 a step, carries the rounding
+#: through ~150 steps of state) and 4.03e-5 (the Jamba cut, over the batch
+#: rows no MoE drop touched; PERF.md).  Each phase also plants a fault and
+#: requires the same check to fail on it.
 SERVE_TOL = {"qwen3-4b": dict(atol=1e-3, rtol=0.0),
-             "rwkv6-1.6b": dict(atol=3e-3, rtol=0.0)}
+             "rwkv6-1.6b": dict(atol=3e-3, rtol=0.0),
+             "jamba-1.5-large-398b": dict(atol=1e-3, rtol=0.0)}
+#: the Jamba deployment served on one card: every published width, depth
+#: cut to one period of 2 layers (the JAX package's smoke layout)
+JAMBA_CUT = dict(num_layers=2, attn_layer_period=2, attn_layer_offset=1)
 
 
 def say(phase: str, **fields) -> None:
@@ -129,7 +151,8 @@ def check(cond: bool, what: str) -> None:
 
 
 #: every kernel's wrapper, whose ``launches`` counts its kernel's launches
-WRAPPERS = (server_step_update, adagrad_update, flash_attention, wkv)
+WRAPPERS = (server_step_update, adagrad_update, flash_attention, wkv,
+            mamba_scan)
 
 
 def _zero_counts() -> None:
@@ -489,6 +512,125 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
     }
 
 
+# --- 3c. the Mamba selective scan (K4) against its plain version -------------
+
+
+def _k4_bound(ins) -> tuple:
+    """Bytes: dt, x, b_t, c_t, a and h0 read and y and hT (f32) written
+    once.  Operations: 6 per state element a step (dt*a, da*h, dx*b, their
+    sum, h*c and its add into y) and 1 per channel a step (dx = dt*x); the
+    exps are not counted (kernel.cu notes their own limit)."""
+    dt, _, b_t, _, _, h0 = ins
+    b, t, di = dt.shape
+    nbytes = (sum(z.numel() * z.element_size() for z in ins)
+              + 4 * dt.numel() + 4 * h0.numel())
+    return _bound(nbytes, b * t * di * (6 * b_t.shape[2] + 1))
+
+
+def phase_mamba_kernel(timer: ColdTimer) -> tuple:
+    """K4 against ``mamba_scan_ref`` on the same inputs.  Both do the same
+    separately rounded operations in the same order, so they agree bit for
+    bit wherever the kernel's ``expf`` agrees with ``torch.exp``: one case
+    checks that exp alone.  If it does, every case must be bitwise; if not,
+    every case is held within ``_tol`` (f32: both compute in f32).
+    Returns (K4's entry of the kernels line, whether it was bitwise)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def scan_inputs(b, t, di, ds, dtype=torch.float32, h0_scale=0.1):
+        """test_mamba_scan_sweep's distributions."""
+        def u(*shape):
+            return torch.rand(*shape, generator=gen, device="cuda")
+
+        def n(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        return (0.001 + 0.099 * u(b, t, di), n(b, t, di).to(dtype),
+                n(b, t, ds).to(dtype), n(b, t, ds).to(dtype),
+                -(0.5 + 3.5 * u(di, ds)), h0_scale * n(b, di, ds))
+
+    cases = []                               # (where, max err, bitwise)
+
+    def k4_check(ins, where):
+        (y, hT), (y_ref, h_ref) = mamba_scan(*ins), mamba_scan_ref(*ins)
+        torch.cuda.synchronize()
+        err = max(_max_err(y, y_ref), _max_err(hT, h_ref))
+        check(y.dtype == hT.dtype == torch.float32
+              and _within(y, y_ref, **TOL_F32)
+              and _within(hT, h_ref, **TOL_F32),
+              f"K4 within {TOL_F32} of its plain version at {where}: max "
+              f"err {err}")
+        cases.append((where, err, torch.equal(y, y_ref)
+                      and torch.equal(hT, h_ref)))
+        return y, hT
+
+    for b, t, di, ds in K4_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            k4_check(scan_inputs(b, t, di, ds, dtype), f"{b}x{t}x{di}x{ds}"
+                     f"_{name}")
+    # the exp alone: with x = 0 and h0 = 1 one step leaves hT = exp(dt a),
+    # here over dt * a in [-40, 0]
+    di, ds = 16384, 16
+    dt_e = torch.rand(SERVE_BATCH, 1, di, generator=gen, device="cuda")
+    a_e = -40.0 * torch.rand(di, ds, generator=gen, device="cuda")
+    exp_in = (dt_e, torch.zeros_like(dt_e),
+              torch.randn(SERVE_BATCH, 1, ds, generator=gen, device="cuda"),
+              torch.randn(SERVE_BATCH, 1, ds, generator=gen, device="cuda"),
+              a_e, torch.ones(SERVE_BATCH, di, ds, device="cuda"))
+    _, h_exp = k4_check(exp_in, "exp_only")
+    exp_want = torch.exp(dt_e[:, 0, :, None] * a_e)
+    exp_bitwise = torch.equal(h_exp, exp_want)
+    exp_err = _max_err(h_exp, exp_want)
+    # two calls chained through hT give one call over the whole sequence
+    ins = scan_inputs(1, 64, 512, 16)
+    y_full, h_full = k4_check(ins, "chain_one_shot")
+    y1, h1 = k4_check(tuple(z[:, :40].contiguous() for z in ins[:4])
+                      + ins[4:], "chain_first")
+    y2, h2 = k4_check(tuple(z[:, 40:].contiguous() for z in ins[:4])
+                      + (ins[4], h1), "chain_second")
+    check(torch.equal(torch.cat([y1, y2], 1), y_full)
+          and torch.equal(h2, h_full),
+          "K4 chained through hT bitwise equal to one shot")
+    # the main path's shapes: the Jamba cut's prefill and a decode step
+    # from a state
+    prefill_in = scan_inputs(SERVE_BATCH, SERVE_PROMPT, di, ds)
+    k4_check(prefill_in, "prefill")
+    decode_in = scan_inputs(SERVE_BATCH, 1, di, ds, h0_scale=1.0)
+    k4_check(decode_in, "decode_step")
+    bitwise = all(bw for _, _, bw in cases)
+    check(bitwise or not exp_bitwise,
+          "K4 bitwise equal to its plain version, as its exp is: differs at "
+          + ", ".join(w for w, _, bw in cases if not bw))
+    k4_ms = timer(lambda: mamba_scan(*prefill_in))
+    # ~20,000 small launches a call: a few runs suffice
+    k4_plain = timer(lambda: mamba_scan_ref(*prefill_in), reps=3)
+    k4_bound, k4_by = _k4_bound(prefill_in)
+    k4_step_ms = timer(lambda: mamba_scan(*decode_in))
+    k4_step_plain = timer(lambda: mamba_scan_ref(*decode_in))
+    k4_step_bound, k4_step_by = _k4_bound(decode_in)
+    k4_err = max(err for _, err, _ in cases)
+
+    say("3c mamba kernel", k4_cases=len(cases),
+        k4_bitwise="yes" if bitwise else "no",
+        k4_exp_bitwise="yes" if exp_bitwise else "no",
+        k4_exp_max_err=f"{exp_err:.3g}", k4_max_err=f"{k4_err:.3g}",
+        k4_case_errs=",".join(f"{w}:{err:.3g}{'' if bw else '(not_bitwise)'}"
+                              for w, err, bw in cases),
+        k4_ms=f"{k4_ms:.6f}", k4_plain_ms=f"{k4_plain:.6f}",
+        k4_bound_ms=f"{k4_bound:.6f}", k4_bound_by=k4_by,
+        k4_shape=f"B{SERVE_BATCH},T{SERVE_PROMPT},DI{di},ds{ds},f32",
+        k4_step_ms=f"{k4_step_ms:.6f}",
+        k4_step_plain_ms=f"{k4_step_plain:.6f}",
+        k4_step_bound_ms=f"{k4_step_bound:.6f}", k4_step_bound_by=k4_step_by,
+        k4_library="none")
+    return {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba/kernel.cu",
+        "replaces": "src/repro/kernels/mamba/kernel.py:26",
+        "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}, bitwise
+
+
 # --- 4. the Fig. 3 path through the fabric ------------------------------------
 
 
@@ -690,23 +832,32 @@ def phase_quickstart() -> int:
 # --- 6, 7. serving the LM zoo ------------------------------------------------
 
 
-def _record_calls(fn):
-    """``fn`` wrapped to keep the arguments and the result of its first and
-    of its last call.  It keeps references, not copies, so the served run
-    it times does no extra work: the models hand each kernel fresh tensors
-    and change none of them afterwards (the KV cache is written by copy,
-    the RWKV state is stacked anew each step).  Were one changed, its
-    re-run would disagree and fail the check, not pass it."""
-    seen = {}
+@contextlib.contextmanager
+def _recording(module, attr: str, every: bool = False):
+    """While open, ``module.attr`` keeps the arguments and the result of
+    its first and its last call (with ``every``, of every call, in order)
+    in the list it yields.  It keeps references, not
+    copies, so the served run it times does no extra work: the models hand
+    each kernel fresh tensors and change none of them afterwards (the KV
+    cache is written by copy, the RWKV and SSM states are stacked anew each
+    step).  Were one changed, its re-run would disagree and fail the check,
+    not pass it."""
+    original = getattr(module, attr)
+    calls = []
 
     def call(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        if "first" not in seen:
-            seen["first"] = (args, kwargs, out)
-        seen["last"] = (args, kwargs, out)
+        out = original(*args, **kwargs)
+        if every or not calls:
+            calls.append((args, kwargs, out))
+        else:
+            calls[1:] = [(args, kwargs, out)]
         return out
 
-    return call, seen
+    setattr(module, attr, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, original)
 
 
 def _plain_flash_attention(q, k, v, *, causal=True, window=0):
@@ -715,26 +866,38 @@ def _plain_flash_attention(q, k, v, *, causal=True, window=0):
                          window=window).transpose(1, 2)
 
 
-def _decode_device_ms(api, params, cache, token) -> float:
-    """The summed device time of the kernels of one decode step, from a
-    ``torch.profiler`` trace of it (one step first, untraced, so the
-    trace sees no first-call work)."""
+#: the repository's kernels, by the names of their CUDA functions, and the
+#: marks of cuBLAS's matrix-product kernels, to split a trace's device time
+REPO_KERNELS = ("server_step_kernel", "adagrad_kernel", "flash_kernel",
+                "wkv_kernel", "mamba_scan_kernel")
+MATMUL_MARKS = ("gemm", "gemv", "xmma", "cutlass")
+
+
+def _device_split(fn) -> dict:
+    """The device time (ms) of the kernels of one call of ``fn``, from a
+    ``torch.profiler`` trace of it (one call first, untraced, so the trace
+    sees no first-call work): in all, and split into the repository's
+    kernels, matrix products and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    index = SERVE_PROMPT + SERVE_GEN - 1    # rewrites the last cache slot
     with torch.inference_mode():           # the cache is an inference tensor
-        api.decode_step(params, cache, token, index)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            api.decode_step(params, cache, token, index)
+            fn()
             torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    check(bool(kernels), "the profiler traced the decode step's kernels")
-    return sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {"repo_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        part = ("repo_kernels" if any(k in e.key for k in REPO_KERNELS)
+                else "matmul" if any(m in e.key.lower() for m in MATMUL_MARKS)
+                else "other")
+        split[part] += e.self_device_time_total / 1e3
+    check(any(split.values()), "the profiler traced the call's kernels")
+    return dict(split, all=sum(split.values()))
 
 
 def _off_by_one_slot(api):
@@ -746,13 +909,17 @@ def _off_by_one_slot(api):
         api.decode_step(params, cache, token, index - 1, **kw))
 
 
-def _state_dropped(api):
-    """A planted fault: decoding starts from a zero WKV state, not from the
-    one the prefill hands over."""
-    def prefill(*args, **kwargs):
-        logits, cache = api.prefill(*args, **kwargs)
-        return logits, dict(cache, wkv=torch.zeros_like(cache["wkv"]))
-    return dataclasses.replace(api, prefill=prefill)
+def _state_dropped(key: str):
+    """A planted fault: decoding starts from a zero recurrent state under
+    cache ``key`` (RWKV's ``wkv``, Mamba's ``ssm``), not from the one the
+    prefill hands over."""
+    def fault(api):
+        def prefill(*args, **kwargs):
+            logits, cache = api.prefill(*args, **kwargs)
+            return logits, dict(cache, **{key: torch.zeros_like(cache[key])})
+        return dataclasses.replace(api, prefill=prefill)
+    fault.__name__ = f"{key}_state_dropped"
+    return fault
 
 
 def _serve(api, params, prompts):
@@ -794,24 +961,54 @@ def _teacher_forced(api, params, prompts, toks):
     return tf[:, SERVE_PROMPT - 1:, :api.cfg.vocab_size]
 
 
-def phase_serve(phase: str, arch: str, wrapper, module, attr: str, plain,
-                per_call_tol, calls_per_layer: int, fault) -> int:
-    """``generate`` on ``arch`` at full width and depth, f32, with every
-    launch of ``wrapper`` (called by the model as ``module.attr``) counted
-    and the first and last recorded; then the checks described in the
-    module docstring.  ``wrapper`` must launch ``calls_per_layer`` times a
-    layer while serving.  Then ``fault`` (the api with a planted fault)
-    serves the same prompts, and the served-vs-forward check must fail on
-    it.  Last, the kernels of one more decode step are traced: their device
-    time beside the step's time as served gives the device's idle share
-    while decoding."""
-    from repro_torch.configs import get_arch_config
+@dataclasses.dataclass(frozen=True)
+class OnPath:
+    """A kernel on a serve path: its wrapper, which the model calls as
+    ``module.attr``; its plain version and the bar of a launch re-run
+    through it (one per output); the launches the path must make."""
+    wrapper: object
+    module: object
+    attr: str
+    plain: object
+    tol: tuple
+    launches: int
+
+
+def _moe_drops(calls) -> dict:
+    """Over recorded ``apply_moe`` calls (args, kwargs): the assignments
+    dropped, the largest expert load and the capacity, and the (B,) batch
+    rows that held a token with a dropped assignment."""
+    dropped, load, cap, rows = 0, 0, 0, None
+    for args, kwargs, _ in calls:
+        c, loads, tokens = dispatch_load(*args, **kwargs)
+        dropped += int((loads - c).clamp_min(0).sum())
+        load, cap = max(load, int(loads.max())), max(cap, c)
+        hit = tokens.any(-1)
+        rows = hit if rows is None else rows | hit
+    return {"dropped": dropped, "max_load": load, "capacity": cap,
+            "rows": rows}
+
+
+def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
+    """``generate`` on ``cfg`` at its widths, f32, with every launch of
+    each kernel of ``kernels`` (``OnPath``) counted and its first and last
+    recorded; then the checks described in the module docstring.  Each
+    kernel must launch its ``launches`` times while serving.  With ``moe``
+    (the module through which the model calls ``apply_moe``) the dropped
+    assignments of the served run and of the teacher-forced forward are
+    counted, and a batch row that any drop touched is left out of the
+    served-vs-forward comparison.  Then ``fault`` (the api with a planted
+    fault) serves the same prompts, and the served-vs-forward check must
+    fail on it.  Last, the kernels of one more decode step and of one more
+    prefill are traced: the decode step's device time beside its time as
+    served gives the device's idle share while decoding, and both are
+    split into the repository's kernels, matrix products and the rest.
+    Returns each kernel's launches by name."""
     from repro_torch.models.model import build_model, count_params_analytic
     from repro_torch.sharding.spec import values_tree
 
-    cfg = get_arch_config(arch)
+    arch = cfg.name
     tol = SERVE_TOL[arch]
-    expected = calls_per_layer * cfg.num_layers
     vocab = cfg.vocab_size
     api = build_model(cfg, compute_dtype=torch.float32)
     gen = torch.Generator(device="cuda")
@@ -824,99 +1021,142 @@ def phase_serve(phase: str, arch: str, wrapper, module, attr: str, plain,
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda", torch.int32)
 
-    original = getattr(module, attr)
-    recorder, seen = _record_calls(original)
-    setattr(module, attr, recorder)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        t0 = time.perf_counter()
-        toks, served, ms, cache = _serve(api, params, prompts)
-        wall = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in WRAPPERS}
-    finally:
-        setattr(module, attr, original)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = counts[wrapper.__name__]
-    check(launches == expected,
-          f"{arch}: {wrapper.__name__} launched {expected} times while "
-          f"serving, got {counts}")
+    with contextlib.ExitStack() as routing:
+        moe_calls = (routing.enter_context(_recording(moe, "apply_moe",
+                                                      every=True))
+                     if moe is not None else [])
+        with contextlib.ExitStack() as launching:
+            launched = [launching.enter_context(_recording(k.module, k.attr))
+                        for k in kernels]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            toks, served, ms, cache = _serve(api, params, prompts)
+            wall = time.perf_counter() - t0
+            counts = {w.__name__: w.launches for w in WRAPPERS}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        served_moe = moe_calls[:]
+        del moe_calls[:]
+        # the served logits against one teacher-forced forward over the
+        # same tokens
+        tf = _teacher_forced(api, params, prompts, toks)
+    for k in kernels:
+        got = counts[k.wrapper.__name__]
+        check(got == k.launches,
+              f"{arch}: {k.wrapper.__name__} launched {k.launches} times "
+              f"while serving, got {counts}")
     check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < vocab)).all()),
           f"{arch}: tokens of shape {(SERVE_BATCH, SERVE_GEN)} in the "
           f"vocabulary, got {tuple(toks.shape)} {toks.dtype}")
     check(bool(torch.isfinite(served).all()), f"{arch}: finite logits")
 
-    # the served logits against one teacher-forced forward over the same
-    # tokens
-    tf = _teacher_forced(api, params, prompts, toks)
-    err = _max_err(served, tf)
-    check(_within(served, tf, **tol),
+    rows = torch.ones(SERVE_BATCH, dtype=torch.bool, device="cuda")
+    moe_fields = {}
+    if moe is not None:
+        n_moe = len(served_moe) // (1 + SERVE_GEN)
+        check(n_moe > 0 and len(served_moe) == n_moe * (1 + SERVE_GEN)
+              and len(moe_calls) == n_moe,
+              f"{arch}: one apply_moe call a MoE layer and pass")
+        drops = {"prefill": _moe_drops(served_moe[:n_moe]),
+                 "decode": _moe_drops(served_moe[n_moe:]),
+                 "forward": _moe_drops(moe_calls)}
+        for name, d in drops.items():
+            rows &= ~d["rows"]
+            moe_fields[f"moe_{name}_dropped"] = d["dropped"]
+            moe_fields[f"moe_{name}_max_load"] = (f"{d['max_load']}/"
+                                                  f"{d['capacity']}")
+        check(bool(rows.any()), f"{arch}: a batch row that no MoE drop "
+              f"touched, to compare: {drops}")
+    del served_moe, moe_calls
+    err = _max_err(served[rows], tf[rows])
+    check(_within(served[rows], tf[rows], **tol),
           f"{arch}: served logits within {tol} of the teacher-forced "
           f"forward: max err {err}")
     top2 = tf.topk(2, dim=-1).values
     decisive = (top2[..., 0] - top2[..., 1]
-                > tol["atol"] + tol["rtol"] * top2[..., 0].abs())
-    same = served.argmax(-1) == tf.argmax(-1)
+                > tol["atol"] + tol["rtol"] * top2[..., 0].abs())[rows]
+    same = (served.argmax(-1) == tf.argmax(-1))[rows]
     check(bool(same[decisive].all()),
           f"{arch}: served argmax equals the teacher-forced argmax wherever "
           f"the top-two gap exceeds the tolerance")
     logits_absmax = float(tf.abs().max())
     del tf
 
-    # the first and last kernel launch of the run against the plain version
-    rerun_err, rerun_shapes = 0.0, {}
-    for which in ("first", "last"):
-        args, kwargs, out = seen[which]
-        out = out if isinstance(out, tuple) else (out,)
-        with torch.inference_mode():
-            want = plain(*args, **kwargs)
-        want = want if isinstance(want, tuple) else (want,)
-        for got, ref, call_tol in zip(out, want, per_call_tol):
-            check(_within(got, ref, **call_tol),
-                  f"{arch}: the {which} {wrapper.__name__} launch within "
-                  f"{call_tol} of its plain version: max err "
-                  f"{_max_err(got, ref)}")
-            rerun_err = max(rerun_err, _max_err(got, ref))
-        rerun_shapes[which] = "x".join(str(n) for n in args[0].shape)
-    del seen
+    # the first and last launch of each kernel against its plain version
+    rerun = {}
+    for k, calls in zip(kernels, launched):
+        for which, (args, kwargs, out) in (("first", calls[0]),
+                                           ("last", calls[-1])):
+            out = out if isinstance(out, tuple) else (out,)
+            with torch.inference_mode():
+                want = k.plain(*args, **kwargs)
+            want = want if isinstance(want, tuple) else (want,)
+            for got, ref, call_tol in zip(out, want, k.tol):
+                check(_within(got, ref, **call_tol),
+                      f"{arch}: the {which} {k.wrapper.__name__} launch "
+                      f"within {call_tol} of its plain version: max err "
+                      f"{_max_err(got, ref)}")
+                name = k.wrapper.__name__
+                rerun[f"{name}_rerun_max_err"] = max(
+                    rerun.get(f"{name}_rerun_max_err", 0.0),
+                    _max_err(got, ref))
+            rerun[f"{k.wrapper.__name__}_rerun_{which}"] = "x".join(
+                str(n) for n in args[0].shape)
+    del launched
 
     # the same check must fail on a planted fault
     bad_api = fault(api)
     bad_toks, bad_served, _, _ = _serve(bad_api, params, prompts)
     bad_tf = _teacher_forced(api, params, prompts, bad_toks)
-    bad_err = _max_err(bad_served, bad_tf)
-    check(not _within(bad_served, bad_tf, **tol),
+    bad_err = _max_err(bad_served[rows], bad_tf[rows])
+    check(not _within(bad_served[rows], bad_tf[rows], **tol),
           f"{arch}: a planted fault ({fault.__name__}) fails the served-vs-"
           f"forward check at {tol}: its max err is only {bad_err}")
     del bad_api, bad_served, bad_tf
 
     decode_ms = statistics.median(ms[1:])
-    device_ms = _decode_device_ms(api, params, cache, toks[:, -1:])
-    say(phase, arch=arch, params=n_params, batch=SERVE_BATCH,
-        prompt=SERVE_PROMPT, gen=SERVE_GEN,
-        **{f"{wrapper.__name__}_launches": launches},
-        other_launches=sum(counts.values()) - launches,
+    index = SERVE_PROMPT + SERVE_GEN - 1    # rewrites the last cache slot
+    decode = _device_split(lambda: api.decode_step(params, cache,
+                                                   toks[:, -1:], index))
+    prefill = _device_split(lambda: api.prefill(
+        params, {"tokens": prompts}, cache_len=SERVE_PROMPT + SERVE_GEN))
+    on_path = {k.wrapper.__name__ for k in kernels}
+    say(phase, arch=arch, params=n_params, layers=cfg.num_layers,
+        d_model=cfg.d_model, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        gen=SERVE_GEN,
+        **{f"{name}_launches": counts[name] for name in sorted(on_path)},
+        other_launches=sum(n for name, n in counts.items()
+                           if name not in on_path),
         wall_s=f"{wall:.3f}", tok_s=f"{SERVE_BATCH * SERVE_GEN / wall:.1f}",
         prefill_ms=f"{ms[0]:.3f}",
         decode_step_ms_median=f"{decode_ms:.3f}",
-        decode_step_device_ms=f"{device_ms:.3f}",
-        decode_idle_share=f"{1 - device_ms / decode_ms:.3f}",
+        decode_step_device_ms=f"{decode['all']:.3f}",
+        decode_idle_share=f"{1 - decode['all'] / decode_ms:.3f}",
+        **{f"decode_{k}_ms": f"{v:.3f}" for k, v in decode.items()
+           if k != "all"},
+        prefill_device_ms=f"{prefill['all']:.3f}",
+        **{f"prefill_{k}_ms": f"{v:.3f}" for k, v in prefill.items()
+           if k != "all"},
         peak_gb=f"{peak_gb:.2f}", logits_absmax=f"{logits_absmax:.3g}",
         tol_atol=tol["atol"], logits_max_err_vs_forward=f"{err:.3g}",
+        rows_compared=f"{int(rows.sum())}/{SERVE_BATCH}",
         argmax_decisive=f"{int(decisive.sum())}/{decisive.numel()}",
-        argmax_equal=f"{int(same.sum())}/{same.numel()}",
-        rerun_first=rerun_shapes["first"], rerun_last=rerun_shapes["last"],
-        rerun_max_err=f"{rerun_err:.3g}", planted_fault=fault.__name__,
+        argmax_equal=f"{int(same.sum())}/{same.numel()}", **moe_fields,
+        **{key: (f"{v:.3g}" if isinstance(v, float) else v)
+           for key, v in rerun.items()},
+        planted_fault=fault.__name__,
         planted_max_err_vs_forward=f"{bad_err:.3g}")
     del params, api, served, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {name: counts[name] for name in on_path}
 
 
 def main() -> int:
+    from repro_torch.configs import get_arch_config
+
     device = phase_environment()
     built = build.build()
     say("2 build", kernels=",".join(build.KERNELS), seconds=f"{built:.3f}",
@@ -925,16 +1165,33 @@ def main() -> int:
     timer = ColdTimer()
     kernels = phase_kernels(timer, ColdTimer(hold=False))
     kernels.update(phase_lm_kernels(timer))
+    kernels["mamba"], k4_bitwise = phase_mamba_kernel(timer)
     kernels["server_step"]["launches"] = phase_fabric()
     kernels["adagrad"]["launches"] = phase_quickstart()
+    k3 = dict(module=layers, attr="flash_attention",
+              plain=_plain_flash_attention, tol=(TOL_F32,))
+    qwen = get_arch_config("qwen3-4b")
     kernels["flash_attention"]["launches"] = phase_serve(
-        "6 serve", "qwen3-4b", flash_attention, layers,
-        "flash_attention", _plain_flash_attention, (TOL_F32,),
-        calls_per_layer=1, fault=_off_by_one_slot)
+        "6 serve", qwen,
+        [OnPath(flash_attention, launches=qwen.num_layers, **k3)],
+        fault=_off_by_one_slot)["flash_attention"]
+    finch = get_arch_config("rwkv6-1.6b")
     kernels["rwkv6"]["launches"] = phase_serve(
-        "7 serve", "rwkv6-1.6b", wkv, rwkv, "wkv", wkv_ref,
-        (BITWISE, BITWISE), calls_per_layer=1 + SERVE_GEN,
-        fault=_state_dropped)
+        "7 serve", finch,
+        [OnPath(wkv, rwkv, "wkv", wkv_ref, (BITWISE, BITWISE),
+                launches=(1 + SERVE_GEN) * finch.num_layers)],
+        fault=_state_dropped("wkv"))["wkv"]
+    jamba = dataclasses.replace(get_arch_config("jamba-1.5-large-398b"),
+                                **JAMBA_CUT)
+    n_attn = jamba.num_layers // jamba.attn_layer_period
+    k4_tol = BITWISE if k4_bitwise else TOL_F32
+    kernels["mamba"]["launches"] = phase_serve(
+        "8 serve", jamba,
+        [OnPath(mamba_scan, mamba, "mamba_scan", mamba_scan_ref,
+                (k4_tol, k4_tol),
+                launches=(1 + SERVE_GEN) * (jamba.num_layers - n_attn)),
+         OnPath(flash_attention, launches=n_attn, **k3)],
+        fault=_state_dropped("ssm"), moe=hybrid)["mamba_scan"]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 #: Every kernel of the port, by directory name.
-KERNELS = ("adagrad", "server_step", "flash_attention", "rwkv6")
+KERNELS = ("adagrad", "server_step", "flash_attention", "rwkv6", "mamba")
 
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -31,12 +31,15 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: keeps every multiply and add separately rounded, as the eager PyTorch
 #: versions are: K1, K2 and K5 promise bit-equality with them.  Attention
 #: is held to its plain version within a tolerance, and lets nvcc contract
-#: ``a*b+c`` into one fused multiply-add.
+#: ``a*b+c`` into one fused multiply-add.  The selective scan (K4) writes
+#: every multiply and add as an intrinsic that is never contracted, and
+#: keeps the default so that its ``expf`` compiles as PyTorch's exp does.
 NVCC_FLAGS = {
     "adagrad": _COMMON_FLAGS + ("-fmad=false",),
     "server_step": _COMMON_FLAGS + ("-fmad=false",),
     "flash_attention": _COMMON_FLAGS,
     "rwkv6": _COMMON_FLAGS + ("-fmad=false",),
+    "mamba": _COMMON_FLAGS,
 }
 
 _HERE = Path(__file__).resolve().parent

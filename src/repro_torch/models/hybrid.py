@@ -1,0 +1,225 @@
+"""Jamba-style hybrid assembly: Mamba+attention 1:7 interleave, MoE every
+other layer.
+
+The port of ``repro.models.hybrid``, with the same parameter tree: the
+layer stack is cut into *periods* of ``attn_layer_period`` sublayers, the
+periods are stacked on a leading axis, and within a period the Mamba
+mixers, the dense FFNs and the MoE FFNs are stacked again.  The forward
+pass loops over the periods in Python where the JAX package scans.
+
+The cache holds, per period, the attention layer's KV ring (``k``, ``v``,
+``pos``; decode writes it in place) and every Mamba layer's SSM state and
+conv tail (``ssm``, ``conv``; decode hands back new tensors).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.mamba import _dims as mamba_dims
+from repro_torch.models.mamba import init_mamba, mamba_forward
+from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.transformer import layer, stack_layers
+from repro_torch.sharding.spec import Param, init_device
+
+
+def _period_layout(cfg):
+    p = cfg.attn_layer_period
+    attn_pos = cfg.attn_layer_offset
+    moe_every = cfg.moe_layer_period
+    layout = []
+    for i in range(p):
+        mixer = "attn" if i == attn_pos else "mamba"
+        ffn = ("moe" if (cfg.is_moe and i % moe_every == moe_every - 1)
+               else "dense")
+        layout.append((mixer, ffn))
+    return layout
+
+
+def _counts(cfg):
+    """(periods, Mamba layers a period)."""
+    layout = _period_layout(cfg)
+    if cfg.num_layers % len(layout):
+        raise ValueError(f"{cfg.num_layers} layers are not whole periods "
+                         f"of {len(layout)}")
+    return (cfg.num_layers // len(layout),
+            sum(m == "mamba" for m, _ in layout))
+
+
+def init_model(generator, cfg):
+    """-> Param tree of the hybrid decoder on ``generator``'s device (the
+    meta device for ``None``)."""
+    layout = _period_layout(cfg)
+    p_len = len(layout)
+    n_periods, n_mamba = _counts(cfg)
+    n_dense = sum(f == "dense" for _, f in layout)
+    n_moe = sum(f == "moe" for _, f in layout)
+    dev = init_device(generator)
+
+    def norms():
+        return {"scale": Param(torch.ones((p_len, cfg.d_model), device=dev),
+                               ("layers", None))}
+
+    def init_period():
+        pp = {
+            "norm1": norms(),
+            "norm2": norms(),
+            "attn": L.init_attention(generator, cfg),
+            "mamba": stack_layers(lambda: init_mamba(generator, cfg),
+                                  n_mamba),
+            "dense": stack_layers(lambda: L.init_mlp(generator, cfg),
+                                  n_dense),
+        }
+        if n_moe:
+            pp["moe"] = stack_layers(lambda: init_moe(generator, cfg), n_moe)
+        return pp
+
+    return {
+        "embed": L.init_embedding(generator, cfg),
+        "periods": stack_layers(init_period, n_periods),
+        "final_norm": L.init_norm(cfg, generator=generator),
+        "head": L.init_lm_head(generator, cfg),
+    }
+
+
+def _apply_period(pp, cfg, x, *, positions, mode, attn_cache=None,
+                  mamba_state=None, cache_index=None, window=0):
+    """One period.  mode: train | prefill | decode.
+
+    Returns (x, aux, new_attn_cache, (ssm, conv) stacked over the period's
+    Mamba layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mi = di = mo = 0
+    new_attn_cache = None
+    new_states = []
+    for i, (mixer, ffn) in enumerate(_period_layout(cfg)):
+        xn = L.apply_norm({"scale": pp["norm1"]["scale"][i]}, cfg, x)
+        if mixer == "attn":
+            if mode == "decode":
+                h, new_attn_cache = L.attention(
+                    pp["attn"], cfg, xn, positions=positions, window=window,
+                    cache=attn_cache, cache_index=cache_index)
+            else:
+                h, new_attn_cache = L.attention(
+                    pp["attn"], cfg, xn, positions=positions, window=window)
+        else:
+            st = ((mamba_state[0][mi], mamba_state[1][mi])
+                  if mamba_state is not None else None)
+            h, new_st = mamba_forward(layer(pp["mamba"], mi), cfg, xn,
+                                      state=st)
+            new_states.append(new_st)
+            mi += 1
+        x = x + h
+        xn = L.apply_norm({"scale": pp["norm2"]["scale"][i]}, cfg, x)
+        if ffn == "moe":
+            cf = (max(2.0, cfg.moe.capacity_factor) if mode == "decode"
+                  else None)
+            h, a = apply_moe(layer(pp["moe"], mo), cfg, xn,
+                             capacity_factor=cf)
+            aux = aux + a
+            mo += 1
+        else:
+            h = L.apply_mlp(layer(pp["dense"], di), cfg, xn)
+            di += 1
+        x = x + h
+    states = (torch.stack([s for s, _ in new_states]),
+              torch.stack([c for _, c in new_states]))
+    return x, aux, new_attn_cache, states
+
+
+def forward_train(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
+                  compute_logits=True):
+    """A forward pass (the kernels have no backward): (logits, aux_loss,
+    features)."""
+    window = cfg.sliding_window if window is None else window
+    x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in range(_counts(cfg)[0]):
+        x, a, _, _ = _apply_period(layer(params["periods"], p), cfg, x,
+                                   positions=positions, mode="train",
+                                   window=window)
+        aux = aux + a
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
+              if compute_logits else None)
+    return logits, aux, x
+
+
+def init_cache(cfg, batch: int, cache_len: int, *, window=None,
+               dtype=torch.bfloat16, device="cuda"):
+    """Hybrid cache: attention ring buffers + mamba states, per period."""
+    window = cfg.sliding_window if window is None else window
+    dev = resolve_device(device)
+    n_periods, n_mamba = _counts(cfg)
+    size = min(window, cache_len) if window else cache_len
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    d_inner, _, d_state, d_conv = mamba_dims(cfg)
+    return {
+        "k": torch.zeros((n_periods, batch, size, kv, hd), dtype=dtype,
+                         device=dev),
+        "v": torch.zeros((n_periods, batch, size, kv, hd), dtype=dtype,
+                         device=dev),
+        "pos": torch.full((n_periods, size), -1, dtype=torch.int32,
+                          device=dev),
+        "ssm": torch.zeros((n_periods, n_mamba, batch, d_inner, d_state),
+                           dtype=torch.float32, device=dev),
+        "conv": torch.zeros((n_periods, n_mamba, batch, d_conv - 1, d_inner),
+                            dtype=dtype, device=dev),
+    }
+
+
+def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
+            cache_len: int | None = None):
+    """Full-sequence forward that also builds the cache.  Returns
+    (last_logits (B,1,V), cache)."""
+    window = cfg.sliding_window if window is None else window
+    x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, cache_len or s, window=window, dtype=dtype,
+                       device=x.device)
+    size = cache["pos"].shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    if size < s:  # keep the trailing window, ring-ordered by position
+        keep = positions[s - size:]
+        slots = (keep % size).long()
+    else:
+        keep, slots = positions, torch.arange(s, device=x.device)
+    for p in range(_counts(cfg)[0]):
+        x, _, (k, v), (ssm, conv) = _apply_period(
+            layer(params["periods"], p), cfg, x, positions=positions,
+            mode="prefill", window=window)
+        cache["k"][p][:, slots] = k[:, s - len(keep):].to(dtype)
+        cache["v"][p][:, slots] = v[:, s - len(keep):].to(dtype)
+        cache["pos"][p][slots] = keep
+        cache["ssm"][p] = ssm
+        cache["conv"][p] = conv.to(dtype)
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = L.lm_logits(params["head"], params["embed"], cfg, x[:, -1:])
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, token, index: int, *,
+                dtype=torch.bfloat16, window=None):
+    """token: (B, 1) int; index: the token's absolute position (an int).
+
+    Returns (logits (B,1,V), cache): the KV ring is updated in place, the
+    SSM states and conv tails are new tensors (the ones read stay as they
+    were)."""
+    window = cfg.sliding_window if window is None else window
+    x = L.embed_tokens(params["embed"], cfg, token, dtype)
+    positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    ssm, conv = [], []
+    for p in range(_counts(cfg)[0]):
+        x, _, _, (s_p, c_p) = _apply_period(
+            layer(params["periods"], p), cfg, x, positions=positions,
+            mode="decode", window=window,
+            attn_cache=(cache["k"][p], cache["v"][p], cache["pos"][p]),
+            cache_index=index,
+            mamba_state=(cache["ssm"][p], cache["conv"][p]))
+        ssm.append(s_p)
+        conv.append(c_p.to(cache["conv"].dtype))
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    logits = L.lm_logits(params["head"], params["embed"], cfg, x)
+    return logits, dict(cache, ssm=torch.stack(ssm), conv=torch.stack(conv))

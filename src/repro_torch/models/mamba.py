@@ -1,0 +1,109 @@
+"""Selective SSM (Mamba-1) block for the Jamba hybrid architecture.
+
+The port of ``repro.models.mamba``, with the same parameter tree.  The
+selective scan runs in the Mamba kernel (K4), one launch per call over the
+whole sequence (prefill) or one token (decode), with the state carried
+inside the kernel; the JAX package scans its ``_scan_chunk`` (the same
+recurrence), chunked at ``SCAN_CHUNK`` steps.  The projections, the
+depthwise causal conv (whose last ``d_conv - 1`` inputs are the decode
+state), the D-skip and the SiLU gate are torch ops, as they are jnp ops
+there.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.mamba.ops import mamba_scan
+from repro_torch.sharding.spec import Param, init_device, param, shard_act
+
+
+def _dims(cfg):
+    d_inner = cfg.mamba.expand * cfg.d_model
+    dt_rank = cfg.mamba.dt_rank or max(cfg.d_model // 16, 1)
+    return d_inner, dt_rank, cfg.mamba.d_state, cfg.mamba.d_conv
+
+
+def init_mamba(generator, cfg):
+    d_inner, dt_rank, d_state, d_conv = _dims(cfg)
+    dev = init_device(generator)
+    # S4D-real initialisation for A
+    a = torch.arange(1, d_state + 1, dtype=torch.float32,
+                     device=dev)[None, :].repeat(d_inner, 1)
+    return {
+        "in_x": param(generator, (cfg.d_model, d_inner), ("embed", "mamba")),
+        "in_z": param(generator, (cfg.d_model, d_inner), ("embed", "mamba")),
+        "conv_w": param(generator, (d_conv, d_inner), (None, "mamba"),
+                        scale=1.0 / math.sqrt(d_conv)),
+        "conv_b": Param(torch.zeros(d_inner, device=dev), ("mamba",)),
+        "x_proj": param(generator, (d_inner, dt_rank + 2 * d_state),
+                        ("mamba", None)),
+        "dt_w": param(generator, (dt_rank, d_inner), (None, "mamba"),
+                      scale=dt_rank ** -0.5),
+        "dt_b": Param(torch.full((d_inner,), -4.6, device=dev),
+                      ("mamba",)),                       # softplus ~ 0.01
+        "A_log": Param(torch.log(a), ("mamba", None)),
+        "D": Param(torch.ones(d_inner, device=dev), ("mamba",)),
+        "out": param(generator, (d_inner, cfg.d_model), ("mamba", "embed"),
+                     scale=1.0 / math.sqrt(d_inner)),
+    }
+
+
+def _ssm_inputs(p, cfg, xh):
+    """xh: (B, T, d_inner) post-conv -> (dt, B_t, C_t), all f32."""
+    _, dt_rank, d_state, _ = _dims(cfg)
+    proj = xh @ p["x_proj"].to(xh.dtype)
+    dt_low, b_t, c_t = torch.split(proj, [dt_rank, d_state, d_state], -1)
+    dt = F.softplus((dt_low @ p["dt_w"].to(xh.dtype)).float() + p["dt_b"])
+    return dt, b_t.float(), c_t.float()
+
+
+def mamba_forward(p, cfg, x, *, state=None):
+    """Full-sequence forward (and, at S = 1, a decode step).  x: (B, S, D).
+
+    Returns (y, final_state) where state = (ssm_h, conv_tail):
+      ssm_h (B, d_inner, d_state) f32, conv_tail (B, d_conv-1, d_inner)."""
+    d_inner, _, d_state, d_conv = _dims(cfg)
+    b, s, _ = x.shape
+    xz = shard_act(x @ p["in_x"].to(x.dtype), "batch", "seq", "mamba")
+    z = shard_act(x @ p["in_z"].to(x.dtype), "batch", "seq", "mamba")
+
+    # depthwise causal conv over seq
+    tail = (state[1].to(xz.dtype) if state is not None
+            else torch.zeros((b, d_conv - 1, d_inner), dtype=xz.dtype,
+                             device=x.device))
+    xp = torch.cat([tail, xz], dim=1)
+    conv_w = p["conv_w"].to(xz.dtype)
+    xh = sum(xp[:, i:i + s, :] * conv_w[i] for i in range(d_conv))
+    xh = F.silu(xh + p["conv_b"].to(xz.dtype))
+
+    dt, b_t, c_t = _ssm_inputs(p, cfg, xh)
+    h0 = (state[0] if state is not None
+          else torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                           device=x.device))
+    a = -torch.exp(p["A_log"])                            # (d_inner, ds)
+    y, hT = mamba_scan(dt.contiguous(), xh.float().contiguous(),
+                       b_t.contiguous(), c_t.contiguous(), a.contiguous(),
+                       h0.contiguous())
+
+    y = (y + xh.float() * p["D"]).to(x.dtype)
+    y = shard_act(y * F.silu(z), "batch", "seq", "mamba")
+    out = y @ p["out"].to(x.dtype)
+    return shard_act(out, "batch", "seq", None), (hT, xp[:, s:, :])
+
+
+def mamba_decode_step(p, cfg, x, state):
+    """Single-token decode.  x: (B, 1, D); state as in mamba_forward."""
+    return mamba_forward(p, cfg, x, state=state)
+
+
+def mamba_init_state(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):
+    d_inner, _, d_state, d_conv = _dims(cfg)
+    dev = resolve_device(device)
+    return (torch.zeros((batch, d_inner, d_state), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype,
+                        device=dev))

@@ -11,9 +11,11 @@ returns a ``ModelApi`` with:
   init_cache(batch, cache_len) -> cache tree
   batch_spec(shape)            -> {name: (shape, dtype)} of the inputs
 
-Families ``dense`` (``transformer``) and ``ssm`` (``rwkv``) are ported;
-``moe``, ``hybrid``, ``encdec`` and ``vlm`` raise ``NotImplementedError``,
-and ``train_loss`` comes with the training slice (ROADMAP.md).
+Families ``dense`` (``transformer``), ``ssm`` (``rwkv``) and ``hybrid``
+(``hybrid``: Mamba, attention and MoE) are ported, dispatched on
+``cfg.family`` as the JAX factory does; ``moe`` (the transformer-family
+MoE), ``encdec`` and ``vlm`` raise ``NotImplementedError``, and
+``train_loss`` comes with the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,13 +27,12 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import hybrid, rwkv, transformer
 from repro_torch.sharding.spec import values_tree
 from repro_torch.tree import as_tensor, tree_flatten
 
 _LATER = {
-    "moe": "Queue 1 item 8 (moe.py)",
-    "hybrid": "Queue 1 item 8 (mamba.py, hybrid.py) and Queue 2 K4",
+    "moe": "Queue 1 item 8 (the MoE block of transformer.py)",
     "encdec": "Queue 1 item 8 (encdec.py)",
     "vlm": "Queue 1 item 8 (the vlm input of transformer.py)",
 }
@@ -58,17 +59,18 @@ class ModelApi:
     batch_spec: Callable[..., Any]
 
 
+_MODULES = {"dense": transformer, "ssm": rwkv, "hybrid": hybrid}
+
+
 def _module(cfg: ArchConfig):
-    family = "moe" if cfg.is_moe else cfg.family
+    family = cfg.family
     if family in _LATER:
         raise NotImplementedError(
             f"family {family!r} ({cfg.name}) comes with a later slice of "
             f"the port: ROADMAP.md, {_LATER[family]}")
-    if family == "dense":
-        return transformer
-    if family == "ssm":
-        return rwkv
-    raise ValueError(f"no LM assembly for family {cfg.family!r}")
+    if family not in _MODULES:
+        raise ValueError(f"no LM assembly for family {family!r}")
+    return _MODULES[family]
 
 
 def build_model(cfg: ArchConfig, *,
@@ -133,13 +135,20 @@ def _paths(tdef, prefix=""):
 
 def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
     """The number of parameters of the real init, counted on the meta
-    device.  ``active_only`` matters only for MoE (not ported)."""
-    total = 0
-    for shape, _ in _shapes(cfg).values():
+    device.  ``active_only``: MoE expert weights (the ``w_*`` leaves under
+    a ``moe`` key) counted at k/E of their size."""
+    total = expert = 0
+    for path, (shape, _) in _shapes(cfg).items():
         n = 1
         for dim in shape:
             n *= dim
         total += n
+        keys = path.split("/")
+        if "moe" in keys and any(k.startswith("w_") for k in keys):
+            expert += n
+    if active_only and cfg.is_moe and expert:
+        frac = cfg.moe.num_experts_per_tok / cfg.moe.num_experts
+        return int(total - expert * (1.0 - frac))
     return total
 
 

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6.ops import wkv
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer, stack_layers
@@ -147,8 +148,9 @@ def channel_mix_forward(p, cfg, x, *, state=None):
     return shard_act(r * kv, "batch", "seq", None), x[:, -1, :]
 
 
-def rwkv_init_state(cfg, batch: int, dtype=torch.bfloat16, device="cpu"):
+def rwkv_init_state(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):
     h, hd = _dims(cfg)
+    device = resolve_device(device)
     return {
         "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
                            device=device),
@@ -228,7 +230,7 @@ def forward_train(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
 
 
 def init_cache(cfg, batch: int, cache_len: int = 0, *, window=None,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cuda"):
     """RWKV's 'cache' is the recurrent state (O(1) in sequence length)."""
     state = rwkv_init_state(cfg, batch, dtype, device)
     return {key: torch.stack([v] * cfg.num_layers)

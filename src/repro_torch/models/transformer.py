@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.sharding.spec import Param
 from repro_torch.tree import tree_flatten, tree_map
@@ -40,8 +41,12 @@ def stack_layer_axes(tree):
 def stack_layers(init_one, n: int):
     """``n`` blocks of ``init_one()`` stacked on a leading axis, each leaf
     written into one preallocated tensor (peak memory: the stack and one
-    block), with the 'layers' axis prepended."""
+    block), with the 'layers' axis prepended.  One block is stacked as a
+    view of itself, with no copy."""
     first = init_one()
+    if n == 1:
+        return stack_layer_axes(tree_map(lambda p: Param(p.value[None],
+                                                         p.axes), first))
     leaves, tdef = tree_flatten(first)
     stacked = [torch.empty((n,) + tuple(p.value.shape), dtype=p.value.dtype,
                            device=p.value.device) for p in leaves]
@@ -129,8 +134,9 @@ def forward_train(params, cfg, tokens, *, patches=None,
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window=None,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cuda"):
     window = cfg.sliding_window if window is None else window
+    device = resolve_device(device)
     size = min(window, cache_len) if window else cache_len
     shape = (cfg.num_layers, batch, size, cfg.num_kv_heads,
              cfg.resolved_head_dim)

@@ -63,7 +63,7 @@ def param(generator, shape, axes, *, dtype=torch.float32,
             scale = 1.0 / (shape[0] ** 0.5) if len(shape) >= 2 else 0.02
         v = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        v = (v * scale).to(dtype)
+        v = v.mul_(scale).to(dtype)       # in place: no second copy
     else:
         raise ValueError(init)
     return Param(v, tuple(axes))

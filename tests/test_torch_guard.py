@@ -47,7 +47,8 @@ SLICE_MODULES = (
     "configs.jamba_1_5_large_398b", "sharding.spec", "models.layers",
     "models.transformer", "models.rwkv", "models.model", "launch.serve",
     "kernels.flash_attention.ops", "kernels.flash_attention.ref",
-    "kernels.rwkv6.ops", "kernels.rwkv6.ref")
+    "kernels.rwkv6.ops", "kernels.rwkv6.ref", "kernels.mamba.ops",
+    "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid")
 
 #: The modules the port carries as byte copies (the only change is
 #: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
@@ -137,3 +138,39 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[entry]()
+
+
+def _state_makers():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import hybrid, mamba, rwkv, transformer
+
+    dense = get_smoke_config("qwen3-4b")
+    ssm = get_smoke_config("rwkv6-1.6b")
+    jamba = get_smoke_config("jamba-1.5-large-398b")
+    return {
+        "transformer.init_cache": lambda **kw: transformer.init_cache(
+            dense, 1, 8, **kw),
+        "rwkv.init_cache": lambda **kw: rwkv.init_cache(ssm, 1, 8, **kw),
+        "rwkv.rwkv_init_state": lambda **kw: rwkv.rwkv_init_state(
+            ssm, 1, **kw),
+        "hybrid.init_cache": lambda **kw: hybrid.init_cache(jamba, 1, 8,
+                                                            **kw),
+        "mamba.mamba_init_state": lambda **kw: mamba.mamba_init_state(
+            jamba, 1, **kw),
+    }
+
+
+@pytest.mark.parametrize("maker", ["transformer.init_cache",
+                                   "rwkv.init_cache", "rwkv.rwkv_init_state",
+                                   "hybrid.init_cache",
+                                   "mamba.mamba_init_state"])
+def test_cache_and_state_makers_default_to_cuda(monkeypatch, maker):
+    """Each asks for ``cuda`` unless told otherwise: on a host without CUDA
+    it raises, and with ``device="cpu"`` it makes its tensors there."""
+    make = _state_makers()[maker]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    made = make(device="cpu")
+    tensors = made.values() if isinstance(made, dict) else made
+    assert all(t.device.type == "cpu" for t in tensors)

@@ -27,9 +27,11 @@ from repro.models.model import lm_loss as jax_lm_loss
 from repro.sharding.spec import values_tree as jax_values_tree
 from repro_torch.configs import get_arch_config, get_smoke_config
 from repro_torch.launch.serve import generate
+from repro_torch.models import hybrid
 from repro_torch.models import layers as L
 from repro_torch.models.model import (build_model, count_params_analytic,
                                       lm_loss, params_from_numpy)
+from repro_torch.models.moe import dispatch_load
 from repro_torch.tree import tree_as_tensors
 
 TOL = dict(atol=2e-4, rtol=1e-3)
@@ -174,7 +176,8 @@ def test_mlp_matches_jax(act):
 B, S, GEN = 2, 12, 3
 
 
-@pytest.fixture(scope="module", params=["qwen3-4b", "rwkv6-1.6b"])
+@pytest.fixture(scope="module",
+                params=["qwen3-4b", "rwkv6-1.6b", "jamba-1.5-large-398b"])
 def served(request):
     """The JAX side of one smoke model, run once: params, prompts, prefill,
     GEN decode steps along the greedy tokens, and ``generate``."""
@@ -230,7 +233,8 @@ def test_forward_features_matches_jax(served):
     want_logits, want_aux, want_feats = served["features"]
     _close(logits, want_logits)
     _close(feats, want_feats)
-    assert float(aux) == float(want_aux) == 0.0
+    _close(aux, want_aux)                   # the MoE load-balance loss
+    assert (float(aux) > 0) == served["cfg"].is_moe
     assert torch.equal(api.head_logits(params, feats), logits)
 
 
@@ -241,16 +245,30 @@ def test_generate_matches_jax_generate(served):
     np.testing.assert_array_equal(toks.numpy(), served["toks"])
 
 
-def test_generate_matches_teacher_forced_forward(served):
+def test_generate_matches_teacher_forced_forward(served, monkeypatch):
     """The port's own version of ``tests/test_serve.py``'s check, at every
     generated position: the greedy tokens are the argmax of one full
     forward over prompt + generated tokens (causal, so each position sees
-    only its past)."""
+    only its past).  A MoE layer that dropped an assignment in one pass
+    and not in the other would route the two otherwise, so first no pass
+    may have dropped one."""
     api, params, cfg = served["api"], served["params"], served["cfg"]
+    dropped = []
+    routed = hybrid.apply_moe
+
+    def counted(p, cfg, x, *, capacity_factor=None):
+        _, _, drops = dispatch_load(p, cfg, x,
+                                    capacity_factor=capacity_factor)
+        dropped.append(int(drops.sum()))
+        return routed(p, cfg, x, capacity_factor=capacity_factor)
+
+    monkeypatch.setattr(hybrid, "apply_moe", counted)
     prompts = _tokens(served["prompts"])
     toks = generate(api, params, prompts, gen=GEN)
     logits, _, _ = api.forward_features(
         params, {"tokens": torch.cat([prompts, toks], 1)})
+    assert len(dropped) == (2 + GEN if cfg.is_moe else 0)
+    assert sum(dropped) == 0
     picked = logits[:, S - 1:S + GEN - 1, :cfg.vocab_size].argmax(-1)
     np.testing.assert_array_equal(picked.numpy(), toks.numpy())
 
@@ -303,16 +321,33 @@ def test_lm_loss_and_batch_spec_match_jax():
             for k, (shape, dtype) in got.items()}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b"])
 def test_param_count_matches_jax_at_full_size(arch):
     cfg = get_arch_config(arch)
     assert count_params_analytic(cfg) == jax_count_params(
         jax_arch_config(arch))
+    assert count_params_analytic(cfg, active_only=True) == jax_count_params(
+        jax_arch_config(arch), active_only=True)
     assert cfg.param_count() == count_params_analytic(cfg)
+    assert cfg.active_param_count() == count_params_analytic(
+        cfg, active_only=True)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
-                                  "whisper-small", "internvl2-26b"])
+def test_jamba_cut_served_on_one_card_counts_as_jax():
+    """The depth cut ``chip_smoke.py`` serves: every published width, 2
+    layers (1 Mamba + dense FFN, 1 attention + MoE FFN)."""
+    cut = dict(num_layers=2, attn_layer_period=2, attn_layer_offset=1)
+    cfg = dataclasses.replace(get_arch_config("jamba-1.5-large-398b"), **cut)
+    jcfg = dataclasses.replace(jax_arch_config("jamba-1.5-large-398b"), **cut)
+    assert count_params_analytic(cfg) == jax_count_params(jcfg) \
+        == 11_912_896_512
+    assert count_params_analytic(cfg, active_only=True) \
+        == jax_count_params(jcfg, active_only=True) == 3_457_179_648
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-small",
+                                  "internvl2-26b"])
 def test_families_of_later_slices_are_refused(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(get_smoke_config(arch))
