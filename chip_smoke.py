@@ -10,7 +10,8 @@ Phases, one line each:
   1. environment: versions, the card, ``nvidia-smi`` name and power limit;
      TF32 off and cuDNN deterministic, so the checks below are exact;
   2. build: the five CUDA kernels from the checkout's sources (nvcc, first
-     use, all at once);
+     use, all at once), and ptxas's registers and spills for each CUDA
+     function (K3 and K5 must not spill);
   3. each kernel against its plain PyTorch version on the card, over edge
      and main-path sizes: K1, K2 and K5 (WKV) bitwise, K3 (flash
      attention) within ``tests/test_kernels.py::_tol``; each kernel's and
@@ -60,6 +61,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,10 +90,12 @@ from repro_torch.models import cnn, hybrid, layers, mamba, rwkv  # noqa: E402
 from repro_torch.models.moe import dispatch_load  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-#: H100 SXM data-sheet peaks (dense): HBM3 bytes/s and f32 (non-tensor-core)
-#: flop/s; the bound of a kernel is the larger of its two times.
+#: H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 (non-tensor-core)
+#: flop/s and TF32 tensor-core flop/s; the bound of a kernel is the larger
+#: of its bytes' and its operations' times.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
 
 KERNEL_SIZES = (1, 127, 8192, 609_258, 1_000_003)
 #: (p, g) dtypes K2 takes: g in p's dtype, or f32 under bf16 params
@@ -111,13 +115,16 @@ TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
 #: K5, and K4 where its exp agrees, are held to their plain versions bit
 #: for bit
 BITWISE = dict(atol=0.0, rtol=0.0)
-#: test_flash_attention_sweep's grid (b, s, hq, hkv, hd), plus a sequence
-#: that no 64-row tile divides
+#: test_flash_attention_sweep's grid (b, s, hq, hkv, hd), plus sequences
+#: that no 32- or 64-row tile divides (1, 65, 100)
 K3_SHAPES = ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
-             (2, 192, 6, 2, 32), (2, 100, 4, 2, 64))
+             (2, 192, 6, 2, 32), (2, 100, 4, 2, 64), (1, 1, 4, 1, 64),
+             (2, 65, 8, 2, 128), (2, 65, 6, 2, 32))
 K3_MASKS = ((True, 0), (False, 0), (True, 64))
-#: test_rwkv6_wkv_sweep's grid (b, t, h, hd)
-K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32))
+#: test_rwkv6_wkv_sweep's grid (b, t, h, hd), plus the short sequences that
+#: only fill and drain the row groups' wavefront
+K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32)) + tuple(
+    (2, t, 4, hd) for hd in (64, 32) for t in (1, 2, 3, 5))
 #: test_mamba_scan_sweep's grid (b, t, di, ds)
 K4_SHAPES = ((1, 64, 512, 16), (2, 96, 1024, 8), (1, 64, 512, 32))
 #: the serve path: batch, prompt length, new tokens
@@ -357,21 +364,28 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
 # --- 3b. attention (K3) and WKV (K5) against their plain versions -----------
 
 
-def _bound(nbytes: int, flops: int) -> tuple:
+def _bound(nbytes: int, flops: float, peak: float = PEAK_F32_FLOP_S) -> tuple:
     """(ms, what bounds it): the larger of the bytes' and the operations'
-    times at the card's peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    times at the card's peaks (operations at ``peak`` flop/s)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def _k3_bound(q, k, causal: bool = True) -> tuple:
     """Bytes: q, k, v read and out written once.  Operations: the two
-    products over the (query, key) pairs this mask leaves visible."""
+    products over the (query, key) pairs this mask leaves visible, on the
+    route that meets the bar: the tensor cores' TF32 in three passes for
+    f32 inputs (hi/lo split), in one pass for q.K^T and two for P V under
+    bf16 (exact in TF32).  Returns (ms, what bounds it, the operations' ms
+    on the f32 CUDA cores)."""
     b, s, hq, hd = q.shape
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * hq * hd * pairs
-    return _bound((2 * q.numel() + 2 * k.numel()) * q.element_size(), flops)
+    passes = 3 if q.dtype == torch.float32 else 1.5
+    ms, by = _bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                    passes * flops, PEAK_TF32_FLOP_S)
+    return ms, by, 1e3 * flops / PEAK_F32_FLOP_S
 
 
 def _k5_bound(r, s0) -> tuple:
@@ -413,23 +427,30 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
                       f"window={window}: max err {_max_err(got, want)}")
                 k3_err[name] = max(k3_err[name], _max_err(got, want))
                 k3_cases += 1
-    # the main path's shape: qwen3-4b's prefill
-    q = rand(SERVE_BATCH, SERVE_PROMPT, 32, 128)
-    k, v = (rand(SERVE_BATCH, SERVE_PROMPT, 8, 128) for _ in range(2))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    got = flash_attention(q, k, v)
-    want = attention_ref(qt, kt, vt).transpose(1, 2)
-    torch.cuda.synchronize()
-    check(_within(got, want, **TOL_F32), f"K3 within {TOL_F32} at the main "
-          f"path's shape: max err {_max_err(got, want)}")
-    k3_err["float32"] = max(k3_err["float32"], _max_err(got, want))
-    k3_cases += 1
-    k3_ms = timer(lambda: flash_attention(q, k, v))
-    k3_plain = timer(lambda: attention_ref(qt, kt, vt))
-    k3_lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    k3_bound, k3_by = _k3_bound(q, k)
-    del q, k, v, qt, kt, vt, got, want
+    # the main path's shapes, each checked and timed: qwen3-4b's prefill
+    # (GQA 32:8) and the Jamba cut's (64:8)
+    k3_times = {}
+    for model, hq in (("qwen3-4b", 32), ("jamba", 64)):
+        q = rand(SERVE_BATCH, SERVE_PROMPT, hq, 128)
+        k, v = (rand(SERVE_BATCH, SERVE_PROMPT, 8, 128) for _ in range(2))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention(q, k, v)
+        want = attention_ref(qt, kt, vt).transpose(1, 2)
+        torch.cuda.synchronize()
+        check(_within(got, want, **TOL_F32), f"K3 within {TOL_F32} at "
+              f"{model}'s prefill shape: max err {_max_err(got, want)}")
+        k3_err["float32"] = max(k3_err["float32"], _max_err(got, want))
+        k3_cases += 1
+        k3_times[model] = dict(
+            ms=timer(lambda: flash_attention(q, k, v)),
+            plain_ms=timer(lambda: attention_ref(qt, kt, vt)),
+            library_ms=timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound=_k3_bound(q, k))
+        del q, k, v, qt, kt, vt, got, want
+    k3 = k3_times["qwen3-4b"]
+    (k3_bound, k3_by, k3_core), jam = k3["bound"], k3_times["jamba"]
 
     # K5 against wkv_ref on the same inputs: bitwise (same operations in
     # the same order, each rounded once)
@@ -483,10 +504,17 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
     say("3b lm kernels", k3_cases=k3_cases,
         k3_max_err_f32=f"{k3_err['float32']:.3g}",
         k3_max_err_bf16=f"{k3_err['bfloat16']:.3g}",
-        k3_ms=f"{k3_ms:.6f}", k3_plain_ms=f"{k3_plain:.6f}",
-        k3_sdpa_ms=f"{k3_lib:.6f}", k3_bound_ms=f"{k3_bound:.6f}",
-        k3_bound_by=k3_by,
+        k3_ms=f"{k3['ms']:.6f}", k3_plain_ms=f"{k3['plain_ms']:.6f}",
+        k3_sdpa_ms=f"{k3['library_ms']:.6f}", k3_bound_ms=f"{k3_bound:.6f}",
+        k3_bound_by=k3_by, k3_bound_cuda_core_ms=f"{k3_core:.6f}",
         k3_shape=f"B{SERVE_BATCH},S{SERVE_PROMPT},Hq32,Hkv8,hd128,f32,causal",
+        k3_jamba_ms=f"{jam['ms']:.6f}",
+        k3_jamba_plain_ms=f"{jam['plain_ms']:.6f}",
+        k3_jamba_sdpa_ms=f"{jam['library_ms']:.6f}",
+        k3_jamba_bound_ms=f"{jam['bound'][0]:.6f}",
+        k3_jamba_bound_cuda_core_ms=f"{jam['bound'][2]:.6f}",
+        k3_jamba_shape=f"B{SERVE_BATCH},S{SERVE_PROMPT},Hq64,Hkv8,hd128,f32,"
+                       f"causal",
         k5_cases=k5_cases, k5_bitwise="yes", k5_max_err=f"{k5_err:.3g}",
         k5_ms=f"{k5_ms:.6f}", k5_plain_ms=f"{k5_plain:.6f}",
         k5_bound_ms=f"{k5_bound:.6f}", k5_bound_by=k5_by,
@@ -500,8 +528,8 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
             "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
             "max_abs_err": max(k3_err["float32"], k3_err["bfloat16"]),
-            "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-            "bound_by": k3_by, "library_ms": k3_lib},
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": k3["library_ms"]},
         "rwkv6": {
             "name": "wkv", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/kernel.cu",
@@ -1154,6 +1182,31 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
     return {name: counts[name] for name in on_path}
 
 
+def _ptxas(name: str) -> list:
+    """(CUDA function, registers a thread, spill bytes) of each entry
+    function of kernel ``name``, from ptxas's ``-v`` lines in its build
+    log; a template instance is named as ``flash_kernel<f32,128>``."""
+    found, fn, spill = [], None, 0
+    for line in build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            t = re.search(r"\d([a-z][a-z_]*_kernel)I(f|\w+?bfloat16)"
+                          r"Li(\d+)E", fn)
+            if t:
+                dtype = "f32" if t.group(2) == "f" else "bf16"
+                fn = f"{t.group(1)}<{dtype},{t.group(3)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            found.append((fn, int(m.group(1)), spill))
+            fn = None
+    return found
+
+
 def main() -> int:
     from repro_torch.configs import get_arch_config
 
@@ -1162,6 +1215,14 @@ def main() -> int:
     say("2 build", kernels=",".join(build.KERNELS), seconds=f"{built:.3f}",
         **{f"flags_{k}": repr(" ".join(v))
            for k, v in build.NVCC_FLAGS.items()})
+    for name in build.KERNELS:
+        fns = _ptxas(name)
+        say("2 ptxas", kernel=name, functions=",".join(
+            f"{fn}:regs={regs}:spill_bytes={spill}"
+            for fn, regs, spill in fns))
+        if name in ("flash_attention", "rwkv6"):
+            check(fns and all(spill == 0 for _, _, spill in fns),
+                  f"{name}'s kernels spill no registers")
     timer = ColdTimer()
     kernels = phase_kernels(timer, ColdTimer(hold=False))
     kernels.update(phase_lm_kernels(timer))

@@ -25,7 +25,7 @@ import torch
 KERNELS = ("adagrad", "server_step", "flash_attention", "rwkv6", "mamba")
 
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                 "-O3", "-shared", "-Xcompiler", "-fPIC")
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: Each kernel's nvcc flags (part of its library's hash).  ``-fmad=false``
 #: keeps every multiply and add separately rounded, as the eager PyTorch
@@ -57,6 +57,12 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256(source(name).read_bytes()
                             + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """nvcc's output for kernel ``name``'s library (ptxas's registers,
+    shared memory and spills per CUDA function, from ``-Xptxas=-v``)."""
+    return library_path(name).with_suffix(".log")
 
 
 def _nvcc() -> str:
@@ -92,6 +98,7 @@ def build(names=KERNELS) -> float:
                 failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
                               f"{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -146,4 +153,4 @@ def launch(wrapper, name: str, entry: str, argtypes: list,
 
 
 __all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "launch",
-           "library", "runs_kernel"]
+           "library", "log_path", "runs_kernel"]

@@ -117,6 +117,55 @@ def test_attention_ref_matches_the_wrapper_layout():
     assert torch.equal(got, want)
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest
+    value with 10 mantissa bits, ties away from zero (add half of the
+    dropped 13 bits to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as K3's tensor cores compute it: each operand split as
+    hi = tf32(x), lo = tf32(x - hi), and (lo.hi + hi.lo) + hi.hi summed in
+    f32 (a product of two TF32 values is exact in f32); one pass is
+    hi.hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_attention(q, k, v, passes):
+    """Causal GQA attention, (B, H, S, hd) layout, with both products
+    through ``_tf32_matmul`` and the softmax in f32, normalised at the end
+    as the kernel does."""
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) / q.shape[-1] ** 0.5
+    n = q.shape[2]
+    mask = torch.ones(n, n, dtype=torch.bool).tril()
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("s,hd", [(256, 64), (128, 128)])
+def test_flash_attention_needs_three_tf32_passes(s, hd):
+    """Why K3 runs three TF32 passes on the tensor cores: on causal 4:1 GQA
+    inputs the hi/lo split (lo.hi + hi.lo + hi.hi) stays within the f32 bar
+    of the plain version, and a single TF32 pass does not."""
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, h, s, hd)).astype(
+        np.float32)) for h in (8, 2, 2))
+    want = attention_ref(q, k, v, causal=True).numpy()
+    np.testing.assert_allclose(_tf32_attention(q, k, v, 3).numpy(), want,
+                               **_tol("float32"))
+    assert not np.allclose(_tf32_attention(q, k, v, 1).numpy(), want,
+                           **_tol("float32"))
+
+
 # --- K5: the WKV recurrence --------------------------------------------------
 
 
