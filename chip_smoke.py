@@ -11,24 +11,29 @@ Phases, one line each:
      TF32 off and cuDNN deterministic, so the checks below are exact;
   2. build: the five CUDA kernels from the checkout's sources (nvcc, first
      use, all at once), and ptxas's registers and spills for each CUDA
-     function (K3 and K5 must not spill);
+     function (K2, K3, K4 and K5 must not spill);
   3. each kernel against its plain PyTorch version on the card, over edge
      and main-path sizes: K1, K2 and K5 (WKV) bitwise, K3 (flash
-     attention) within ``tests/test_kernels.py::_tol``; each kernel's and
+     attention) within ``tests/test_kernels.py::_tol``; K2 one leaf a
+     call and in lists (the FIG2 step, mixed dtype pairs, empty, 0-d and
+     unaligned leaves, more leaves than a launch takes); each kernel's and
      its plain version's times on the card at the main path's shapes
      beside the card's bound (K1, K2 also as a caller that issues one
-     call at a time waits for them, ``unheld``; K3 also beside PyTorch's
-     ``scaled_dot_product_attention``, which nothing on the path calls);
-     3c. K4 (the Mamba selective scan) likewise: bitwise wherever its exp
-     is bitwise equal to ``torch.exp`` (a case isolates the exp), else
-     within ``_tol``;
+     call at a time waits for them, ``unheld``; K2 also one launch a leaf
+     and beside one launch of a 1-element ``add_``; K3 also beside
+     PyTorch's ``scaled_dot_product_attention``, which nothing on the path
+     calls);
+     3c. K4 (the Mamba selective scan) likewise, bitwise in every case,
+     ragged DI, T 1-3 and 65 for every ds and B 3 included, and its exp
+     bitwise equal to ``torch.exp`` (a case isolates the exp); its decode
+     step also beside one copy of its state;
   4. the Fig. 3 path at full width: the FIG4 CNN (609,258 params) trained
      through a FederatedDistributor behind a TransportServer with 3 remote
      v2-wire clients on loopback, K-of-N reticket barrier, FusedServerStep
      on the card; held to its in-process twin (TreeServerStep), and a
      round checkpoint written and reloaded bit-exactly;
   5. the quickstart path: the FIG2 CNN trained in-process with
-     ``adagrad(use_kernel=True)``;
+     ``adagrad(use_kernel=True)``, one K2 launch a step for all 8 leaves;
   6. serving qwen3-4b at full width and depth (f32, random weights from a
      seed): ``generate`` with batch 4, prompt 512, 16 new tokens, one K3
      launch per layer of the prefill; every served position's logits
@@ -76,7 +81,8 @@ import torch  # noqa: E402
 
 from repro_torch.configs.paper_cnn import FIG2_CNN, FIG4_CNN  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.adagrad.ops import adagrad_update  # noqa: E402
+from repro_torch.kernels.adagrad.ops import (  # noqa: E402
+    MAX_LEAVES, adagrad_update, adagrad_update_leaves)
 from repro_torch.kernels.adagrad.ref import adagrad_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -112,8 +118,7 @@ QUICKSTART_LR = 0.02
 #: tests/test_kernels.py::_tol: the bars K3 and K5 are held to
 TOL_F32 = dict(atol=3e-5, rtol=1e-4)
 TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
-#: K5, and K4 where its exp agrees, are held to their plain versions bit
-#: for bit
+#: K2, K4 and K5 are held to their plain versions bit for bit
 BITWISE = dict(atol=0.0, rtol=0.0)
 #: test_flash_attention_sweep's grid (b, s, hq, hkv, hd), plus sequences
 #: that no 32- or 64-row tile divides (1, 65, 100)
@@ -125,8 +130,14 @@ K3_MASKS = ((True, 0), (False, 0), (True, 64))
 #: only fill and drain the row groups' wavefront
 K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32)) + tuple(
     (2, t, 4, hd) for hd in (64, 32) for t in (1, 2, 3, 5))
-#: test_mamba_scan_sweep's grid (b, t, di, ds)
-K4_SHAPES = ((1, 64, 512, 16), (2, 96, 1024, 8), (1, 64, 512, 32))
+#: test_mamba_scan_sweep's grid (b, t, di, ds); then for every ds the
+#: short sequences that only fill and drain the lanes' skew; then ragged DI
+#: (no multiple of a block's channels, and 100 no multiple of 8 bf16s: the
+#: element-wise staging) and B 3
+K4_SHAPES = ((1, 64, 512, 16), (2, 96, 1024, 8), (1, 64, 512, 32)) + tuple(
+    (2, t, 256, ds) for ds in (8, 16, 32) for t in (1, 2, 3, 65)) + (
+    (2, 33, 100, 16), (1, 40, 1000, 8), (1, 20, 100, 32), (3, 40, 512, 32),
+    (3, 17, 1000, 16))
 #: the serve path: batch, prompt length, new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
 #: served logits against the teacher-forced forward over the same tokens,
@@ -158,8 +169,8 @@ def check(cond: bool, what: str) -> None:
 
 
 #: every kernel's wrapper, whose ``launches`` counts its kernel's launches
-WRAPPERS = (server_step_update, adagrad_update, flash_attention, wkv,
-            mamba_scan)
+WRAPPERS = (server_step_update, adagrad_update, adagrad_update_leaves,
+            flash_attention, wkv, mamba_scan)
 
 
 def _zero_counts() -> None:
@@ -265,7 +276,7 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     gen.manual_seed(0)
 
     def rand(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     # K1: the fused server step
     k1_err, k1_cases = 0.0, 0
@@ -284,26 +295,62 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
                           f"the plain version at n={n} M={members} wd={wd}")
                     k1_err = max(k1_err, _max_err(x, y))
                 k1_cases += 1
-    # K2: the per-leaf AdaGrad step, at edge sizes for every (p, g) dtype
-    # pair the wrapper takes, then at the quickstart's own leaves
+    # K2, each leaf bitwise equal to its own plain version: one leaf a
+    # call at edge sizes for every (p, g) dtype pair the wrapper takes; then
+    # lists in one call, each making the launches its pairs and the
+    # per-launch cap call for
     k2_err, k2_cases = 0.0, 0
     kw2 = dict(lr=QUICKSTART_LR, beta=1.0)
 
-    def k2_check(p, g, acc, where):
+    def k2_check(leaves, where, launches=None, weight_decay=0.0):
+        """Each (p, g, acc) of ``leaves`` against ``adagrad_ref``: one leaf
+        through ``adagrad_update`` (``launches`` None), else the list
+        through ``adagrad_update_leaves``, which must make ``launches``."""
         nonlocal k2_err, k2_cases
-        got = adagrad_update(p, g, acc, **kw2)
-        want = adagrad_ref(p, g, acc, **kw2)
+        kw = dict(kw2, weight_decay=weight_decay)
+        before = adagrad_update_leaves.launches
+        if launches is None:
+            got = [adagrad_update(*leaves[0], **kw)]
+        else:
+            got = list(zip(*adagrad_update_leaves(*zip(*leaves), **kw)))
+            made = adagrad_update_leaves.launches - before
+            check(made == launches, f"K2 {where}: {launches} launches, "
+                  f"made {made}")
         torch.cuda.synchronize()
-        for x, y, what in zip(got, want, ("p'", "acc'")):
-            check(x.dtype == y.dtype and torch.equal(x, y),
-                  f"K2 {what} bitwise equal to the plain version at {where}")
-            k2_err = max(k2_err, _max_err(x, y))
+        check(len(got) == len(leaves), f"K2 {where}: a result a leaf")
+        for i, (leaf, out) in enumerate(zip(leaves, got)):
+            want = adagrad_ref(*leaf, **kw)
+            for x, y, what in zip(out, want, ("p'", "acc'")):
+                check(x.dtype == y.dtype and x.shape == y.shape
+                      and torch.equal(x, y), f"K2 {what} bitwise equal to "
+                      f"the plain version at {where}, leaf {i}")
+                k2_err = max(k2_err, _max_err(x, y))
         k2_cases += 1
+
+    def k2_leaf(shape, pt=torch.float32, gt=torch.float32, offset=0):
+        """(p, g, acc); with ``offset`` p is a view that many elements into
+        a larger tensor, so not 16-byte aligned."""
+        n = int(np.prod(shape))
+        p = rand(n + offset, dtype=pt)[offset:].view(shape)
+        return p, rand(*shape, dtype=gt), rand(*shape).abs()
 
     for n in KERNEL_SIZES:
         for pt, gt in K2_DTYPES:
-            k2_check(rand(n, dtype=pt), rand(n, dtype=gt), rand(n).abs(),
-                     f"n={n} p={pt} g={gt}")
+            k2_check([k2_leaf((n,), pt, gt)], f"n={n} p={pt} g={gt}")
+    mixed = [k2_leaf((n,), pt, gt) for n in (1, 127, 1000, 8192)
+             for pt, gt in K2_DTYPES]
+    for wd in (0.0, 1e-2):
+        k2_check(mixed, f"three dtype pairs, wd={wd}", len(K2_DTYPES),
+                 weight_decay=wd)
+    k2_check([k2_leaf((0,)), k2_leaf(()), k2_leaf((5, 0)), k2_leaf((7,))],
+             "empty and 0-d leaves", 1)
+    for pt, gt in K2_DTYPES:
+        k2_check([k2_leaf((n,), pt, gt, offset=1) for n in (1, 1000, 4099)]
+                 + [k2_leaf((4099,), pt, gt)],
+                 f"views at a 1-element offset p={pt} g={gt}", 1)
+    sizes = np.random.default_rng(0).integers(1, 3000, 2 * MAX_LEAVES + 22)
+    k2_check([k2_leaf((int(n),)) for n in sizes],
+             f"{len(sizes)} leaves, {MAX_LEAVES} a launch", 3)
 
     # times at the main path's shapes
     n4 = sum(x.numel() for x in tree_leaves(cnn.init_cnn(
@@ -323,28 +370,45 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
                                       FIG2_CNN, "cuda"))
     grads = [rand(*x.shape) for x in leaves]
     accs = [rand(*x.shape).abs() for x in leaves]
-    for p_, g_, a_ in zip(leaves, grads, accs):
-        k2_check(p_, g_, a_, f"FIG2 leaf {tuple(p_.shape)}")
+    fig2 = list(zip(leaves, grads, accs))
+    for leaf in fig2:
+        k2_check([leaf], f"FIG2 leaf {tuple(leaf[0].shape)}")
+    k2_check(fig2, "the FIG2 step's 8 leaves", 1)
 
-    def step(fn):
-        return lambda: [fn(p_, g_, a_, **kw2)
-                        for p_, g_, a_ in zip(leaves, grads, accs)]
+    def per_leaf(fn):
+        return lambda: [fn(p_, g_, a_, **kw2) for p_, g_, a_ in fig2]
 
-    k2_ms = timer(step(adagrad_update))
-    k2_plain = timer(step(adagrad_ref))
-    k2_unheld = unheld(step(adagrad_update))
+    def one_call():
+        return adagrad_update_leaves(leaves, grads, accs, **kw2)
+
+    k2_ms = timer(one_call)
+    k2_per_leaf = timer(per_leaf(adagrad_update))
+    k2_plain = timer(per_leaf(adagrad_ref))
+    k2_unheld = unheld(one_call)
+    k2_bound, _ = _k2_bound(leaves, grads)
     n2 = sum(x.numel() for x in leaves)
-    k2_bound = 1e3 * max(5 * 4 * n2 / PEAK_BYTES_S,
-                         7 * n2 / PEAK_F32_FLOP_S)
+    one = torch.zeros(1, device="cuda")
+    k2_floor = timer(lambda: one.add_(1.0))
+    big = k2_leaf((KERNEL_SIZES[-1],))
+    k2_big_ms = timer(lambda: adagrad_update_leaves(*([z] for z in big),
+                                                    **kw2))
+    k2_big_plain = timer(lambda: adagrad_ref(*big, **kw2))
+    k2_big_bound, k2_big_by = _k2_bound([big[0]], [big[1]])
 
     say("3 kernels", k1_cases=k1_cases, k1_bitwise="yes",
         k1_ms=f"{k1_ms:.6f}", k1_plain_ms=f"{k1_plain:.6f}",
         k1_bound_ms=f"{k1_bound:.6f}", k1_unheld_ms=f"{k1_unheld:.6f}",
         k1_shape=f"n={n4},M={members}",
         k2_cases=k2_cases, k2_bitwise="yes", k2_step_ms=f"{k2_ms:.6f}",
-        k2_plain_step_ms=f"{k2_plain:.6f}", k2_bound_ms=f"{k2_bound:.6f}",
+        k2_per_leaf_step_ms=f"{k2_per_leaf:.6f}",
+        k2_launch_floor_ms=f"{k2_floor:.6f}",
+        k2_plain_step_ms=f"{k2_plain:.6f}",
+        k2_step_bound_ms=f"{k2_bound:.6f}",
         k2_unheld_step_ms=f"{k2_unheld:.6f}",
-        k2_shape=f"{len(leaves)}_leaves,n={n2}")
+        k2_step_shape=f"{len(leaves)}_leaves,n={n2}",
+        k2_ms=f"{k2_big_ms:.6f}", k2_plain_ms=f"{k2_big_plain:.6f}",
+        k2_bound_ms=f"{k2_big_bound:.6f}", k2_bound_by=k2_big_by,
+        k2_shape=f"n={KERNEL_SIZES[-1]},f32")
     return {
         "server_step": {
             "name": "server_step", "route": "cuda",
@@ -359,6 +423,15 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
             "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
             "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None},
     }
+
+
+def _k2_bound(ps, gs) -> tuple:
+    """Bytes: p, g and acc read and p' and acc' written once.  Operations:
+    7 an element (g*g, the add into acc, beta + acc', its rsqrt, lr*g, the
+    product and the subtraction)."""
+    nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 8)
+                 for p, g in zip(ps, gs))
+    return _bound(nbytes, 7 * sum(p.numel() for p in ps))
 
 
 # --- 3b. attention (K3) and WKV (K5) against their plain versions -----------
@@ -555,13 +628,11 @@ def _k4_bound(ins) -> tuple:
     return _bound(nbytes, b * t * di * (6 * b_t.shape[2] + 1))
 
 
-def phase_mamba_kernel(timer: ColdTimer) -> tuple:
+def phase_mamba_kernel(timer: ColdTimer) -> dict:
     """K4 against ``mamba_scan_ref`` on the same inputs.  Both do the same
-    separately rounded operations in the same order, so they agree bit for
-    bit wherever the kernel's ``expf`` agrees with ``torch.exp``: one case
-    checks that exp alone.  If it does, every case must be bitwise; if not,
-    every case is held within ``_tol`` (f32: both compute in f32).
-    Returns (K4's entry of the kernels line, whether it was bitwise)."""
+    separately rounded operations in the same order, so they must agree
+    bit for bit in every case; one case checks the kernel's exp alone
+    against ``torch.exp``.  Returns K4's entry of the kernels line."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
 
@@ -625,9 +696,10 @@ def phase_mamba_kernel(timer: ColdTimer) -> tuple:
     k4_check(prefill_in, "prefill")
     decode_in = scan_inputs(SERVE_BATCH, 1, di, ds, h0_scale=1.0)
     k4_check(decode_in, "decode_step")
-    bitwise = all(bw for _, _, bw in cases)
-    check(bitwise or not exp_bitwise,
-          "K4 bitwise equal to its plain version, as its exp is: differs at "
+    check(exp_bitwise, f"K4's exp bitwise equal to torch.exp: max err "
+          f"{exp_err}")
+    check(all(bw for _, _, bw in cases),
+          "K4 bitwise equal to its plain version: differs at "
           + ", ".join(w for w, _, bw in cases if not bw))
     k4_ms = timer(lambda: mamba_scan(*prefill_in))
     # ~20,000 small launches a call: a few runs suffice
@@ -636,11 +708,13 @@ def phase_mamba_kernel(timer: ColdTimer) -> tuple:
     k4_step_ms = timer(lambda: mamba_scan(*decode_in))
     k4_step_plain = timer(lambda: mamba_scan_ref(*decode_in))
     k4_step_bound, k4_step_by = _k4_bound(decode_in)
+    # the decode step's yardstick: one copy of its state h0
+    state = torch.empty_like(decode_in[5])
+    k4_copy = timer(lambda: state.copy_(decode_in[5]))
     k4_err = max(err for _, err, _ in cases)
 
-    say("3c mamba kernel", k4_cases=len(cases),
-        k4_bitwise="yes" if bitwise else "no",
-        k4_exp_bitwise="yes" if exp_bitwise else "no",
+    say("3c mamba kernel", k4_cases=len(cases), k4_bitwise="yes",
+        k4_exp_bitwise="yes",
         k4_exp_max_err=f"{exp_err:.3g}", k4_max_err=f"{k4_err:.3g}",
         k4_case_errs=",".join(f"{w}:{err:.3g}{'' if bw else '(not_bitwise)'}"
                               for w, err, bw in cases),
@@ -650,13 +724,14 @@ def phase_mamba_kernel(timer: ColdTimer) -> tuple:
         k4_step_ms=f"{k4_step_ms:.6f}",
         k4_step_plain_ms=f"{k4_step_plain:.6f}",
         k4_step_bound_ms=f"{k4_step_bound:.6f}", k4_step_bound_by=k4_step_by,
+        k4_state_copy_ms=f"{k4_copy:.6f}",
         k4_library="none")
     return {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba/kernel.cu",
         "replaces": "src/repro/kernels/mamba/kernel.py:26",
         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
-        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}, bitwise
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}
 
 
 # --- 4. the Fig. 3 path through the fabric ------------------------------------
@@ -836,10 +911,12 @@ def phase_quickstart() -> int:
         losses.append(loss)
     torch.cuda.synchronize()
     per_step_ms = 1e3 * (time.perf_counter() - t0) / QUICKSTART_STEPS
-    launches = adagrad_update.launches
-    check(launches == QUICKSTART_STEPS * n_leaves,
-          f"adagrad launched once per leaf per step: {launches} launches, "
-          f"{QUICKSTART_STEPS} steps x {n_leaves} leaves")
+    launches = adagrad_update_leaves.launches
+    check(launches == QUICKSTART_STEPS and adagrad_update.launches == 0,
+          f"adagrad launched once a step for the {n_leaves} f32 leaves: "
+          f"{launches} launches of adagrad_update_leaves and "
+          f"{adagrad_update.launches} of adagrad_update in "
+          f"{QUICKSTART_STEPS} steps")
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"finite losses: {losses}")
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
@@ -852,7 +929,7 @@ def phase_quickstart() -> int:
     check(0.0 <= err <= 1.0, f"test error rate in [0, 1]: {err}")
     say("5 quickstart", model=ccfg.name, steps=QUICKSTART_STEPS,
         batch=bs, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
-        test_error=f"{err:.4f}", adagrad_launches=launches,
+        test_error=f"{err:.4f}", leaves=n_leaves, adagrad_launches=launches,
         step_ms=f"{per_step_ms:.3f}")
     return launches
 
@@ -1192,10 +1269,11 @@ def _ptxas(name: str) -> list:
         if m:
             fn, spill = m.group(1), 0
             t = re.search(r"\d([a-z][a-z_]*_kernel)I(f|\w+?bfloat16)"
-                          r"Li(\d+)E", fn)
+                          r"Li(\d+)E(?:Lb([01])E)?", fn)
             if t:
                 dtype = "f32" if t.group(2) == "f" else "bf16"
-                fn = f"{t.group(1)}<{dtype},{t.group(3)}>"
+                vec = {None: "", "1": ",vec", "0": ",scalar"}[t.group(4)]
+                fn = f"{t.group(1)}<{dtype},{t.group(3)}{vec}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1220,13 +1298,13 @@ def main() -> int:
         say("2 ptxas", kernel=name, functions=",".join(
             f"{fn}:regs={regs}:spill_bytes={spill}"
             for fn, regs, spill in fns))
-        if name in ("flash_attention", "rwkv6"):
+        if name in ("adagrad", "flash_attention", "rwkv6", "mamba"):
             check(fns and all(spill == 0 for _, _, spill in fns),
                   f"{name}'s kernels spill no registers")
     timer = ColdTimer()
     kernels = phase_kernels(timer, ColdTimer(hold=False))
     kernels.update(phase_lm_kernels(timer))
-    kernels["mamba"], k4_bitwise = phase_mamba_kernel(timer)
+    kernels["mamba"] = phase_mamba_kernel(timer)
     kernels["server_step"]["launches"] = phase_fabric()
     kernels["adagrad"]["launches"] = phase_quickstart()
     k3 = dict(module=layers, attr="flash_attention",
@@ -1245,11 +1323,10 @@ def main() -> int:
     jamba = dataclasses.replace(get_arch_config("jamba-1.5-large-398b"),
                                 **JAMBA_CUT)
     n_attn = jamba.num_layers // jamba.attn_layer_period
-    k4_tol = BITWISE if k4_bitwise else TOL_F32
     kernels["mamba"]["launches"] = phase_serve(
         "8 serve", jamba,
         [OnPath(mamba_scan, mamba, "mamba_scan", mamba_scan_ref,
-                (k4_tol, k4_tol),
+                (BITWISE, BITWISE),
                 launches=(1 + SERVE_GEN) * (jamba.num_layers - n_attn)),
          OnPath(flash_attention, launches=n_attn, **k3)],
         fault=_state_dropped("ssm"), moe=hybrid)["mamba_scan"]

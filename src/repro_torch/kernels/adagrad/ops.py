@@ -1,9 +1,12 @@
-"""Public wrapper of the fused modified-AdaGrad kernel (K2).
+"""Public wrappers of the fused modified-AdaGrad kernel (K2).
 
-:func:`adagrad_update` checks its tensors, then dispatches by their device:
-CUDA tensors launch ``kernel.cu`` on the current stream (or raise), CPU
-tensors run the plain version in ``ref.py``.  Only a launch adds one to
-``adagrad_update.launches``.
+:func:`adagrad_update_leaves` takes a list of leaves, checks them, then
+dispatches by their device: CUDA tensors launch ``kernel.cu`` on the
+current stream (or raise), one launch for each (p dtype, g dtype) pair
+present and each :data:`MAX_LEAVES` leaves of it; CPU tensors run the plain
+version in ``ref.py`` leaf by leaf.  :func:`adagrad_update` is the same for
+a list of one.  Each wrapper adds one to its own ``launches`` for every
+launch it makes, and nothing else does.
 """
 from __future__ import annotations
 
@@ -15,11 +18,13 @@ from repro_torch.kernels.adagrad.ref import adagrad_ref
 from repro_torch.kernels.build import launch, runs_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: leaves a launch takes (kernel.cu's kMaxLeaves)
+MAX_LEAVES = 64
 
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-             ctypes.c_float]
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_ARGTYPES = [_PP, _PP, _PP, _PP, _PP, ctypes.POINTER(ctypes.c_longlong),
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_int, ctypes.c_float]
 
 
 def _check(p, g, acc) -> None:
@@ -40,6 +45,60 @@ def _check(p, g, acc) -> None:
         raise TypeError(f"acc must be float32, got {acc.dtype}")
 
 
+def _pointers(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _update(counter, ps, gs, accs, lr, beta, weight_decay):
+    """The checked leaves' update; each launch adds one to
+    ``counter.launches``."""
+    if not ps:
+        return [], []
+    if not runs_kernel(ps[0].device, "adagrad"):
+        outs = [adagrad_ref(p, g, a, lr=lr, beta=beta,
+                            weight_decay=weight_decay)
+                for p, g, a in zip(ps, gs, accs)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    p_out = [torch.empty_like(p) for p in ps]
+    acc_out = [torch.empty_like(a) for a in accs]
+    pairs: dict = {}
+    for i, (p, g) in enumerate(zip(ps, gs)):
+        if p.numel():
+            pairs.setdefault((p.dtype, g.dtype), []).append(i)
+    for (p_dtype, g_dtype), leaves in pairs.items():
+        for lo in range(0, len(leaves), MAX_LEAVES):
+            part = leaves[lo:lo + MAX_LEAVES]
+            launch(counter, "adagrad", "repro_adagrad_update_leaves",
+                   _ARGTYPES, ps[0].device,
+                   *(_pointers([ts[i] for i in part])
+                     for ts in (ps, gs, accs, p_out, acc_out)),
+                   (ctypes.c_longlong * len(part))(
+                       *(ps[i].numel() for i in part)),
+                   len(part), int(p_dtype == torch.bfloat16),
+                   int(g_dtype == torch.bfloat16), float(lr), float(beta),
+                   int(bool(weight_decay)), float(weight_decay))
+    return p_out, acc_out
+
+
+def adagrad_update_leaves(ps, gs, accs, *, lr: float, beta: float = 1.0,
+                          weight_decay: float = 0.0):
+    """Every leaf's modified-AdaGrad step: lists ``ps``, ``gs``, ``accs``
+    of one length, leaf i as :func:`adagrad_update` takes it, all on one
+    device.  Returns ``(list of p', list of acc')``, each leaf's bit-equal
+    to its own :func:`adagrad_update`."""
+    ps, gs, accs = list(ps), list(gs), list(accs)
+    if not len(ps) == len(gs) == len(accs):
+        raise ValueError(f"need lists of one length, got {len(ps)} p, "
+                         f"{len(gs)} g and {len(accs)} acc")
+    for p, g, acc in zip(ps, gs, accs):
+        _check(p, g, acc)
+    devices = {p.device for p in ps}
+    if len(devices) > 1:
+        raise ValueError(f"leaves on more than one device: {devices}")
+    return _update(adagrad_update_leaves, ps, gs, accs, lr, beta,
+                   weight_decay)
+
+
 def adagrad_update(p, g, acc, *, lr: float, beta: float = 1.0,
                    weight_decay: float = 0.0):
     """One leaf's modified-AdaGrad step ``(p, g, acc) -> (p', acc')``:
@@ -47,20 +106,12 @@ def adagrad_update(p, g, acc, *, lr: float, beta: float = 1.0,
     shape, contiguous, on one device.  ``p'`` is in ``p``'s dtype, ``acc'``
     f32."""
     _check(p, g, acc)
-    if not runs_kernel(p.device, "adagrad"):
-        return adagrad_ref(p, g, acc, lr=lr, beta=beta,
-                           weight_decay=weight_decay)
-    p_out, acc_out = torch.empty_like(p), torch.empty_like(acc)
-    if p.numel():
-        launch(adagrad_update, "adagrad", "repro_adagrad_update", _ARGTYPES,
-               p.device, p.data_ptr(), g.data_ptr(), acc.data_ptr(),
-               p_out.data_ptr(), acc_out.data_ptr(), p.numel(),
-               int(p.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
-               float(lr), float(beta), int(bool(weight_decay)),
-               float(weight_decay))
+    (p_out,), (acc_out,) = _update(adagrad_update, [p], [g], [acc], lr,
+                                   beta, weight_decay)
     return p_out, acc_out
 
 
 adagrad_update.launches = 0
+adagrad_update_leaves.launches = 0
 
-__all__ = ["adagrad_update"]
+__all__ = ["MAX_LEAVES", "adagrad_update", "adagrad_update_leaves"]

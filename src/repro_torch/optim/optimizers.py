@@ -6,9 +6,10 @@ The default is the paper's **modified AdaGrad** (Sukiyaki §3.1):
 
 — plain AdaGrad with the stabilising constant β *inside* the square root,
 so early steps (tiny accumulated squared gradient) don't explode.  With
-``use_kernel=True`` each leaf goes through the fused CUDA kernel in
-``repro_torch/kernels/adagrad`` (one launch per leaf, as the JAX package
-launches its Pallas kernel).
+``use_kernel=True`` all the leaves of a step go through the fused CUDA
+kernel in ``repro_torch/kernels/adagrad`` together: one launch a step for
+a tree of one dtype (the JAX package launches its Pallas kernel once a
+leaf), every leaf's result the same as its own launch would give.
 
 Every optimizer has the JAX package's interface:
 ``Optimizer(init(params), update(grads, state, params) -> (params, state))``.
@@ -48,19 +49,23 @@ def _leafwise(one, n_out: int, params, *trees):
 def adagrad(lr: float, beta: float = 1.0, weight_decay: float = 0.0,
             use_kernel: bool = False) -> Optimizer:
     """The paper's modified AdaGrad.  ``beta`` is the paper's β."""
-    leaf_step = adagrad_leaf_update
+    kw = dict(lr=lr, beta=beta, weight_decay=weight_decay)
     if use_kernel:
         # imported here: the kernel's plain version imports this package
-        from repro_torch.kernels.adagrad.ops import adagrad_update
-        leaf_step = adagrad_update
+        from repro_torch.kernels.adagrad.ops import adagrad_update_leaves
 
     def init(params):
         return {"acc": tree_map(_zeros_f32, params)}
 
     def update(grads, state, params):
+        if use_kernel:
+            flat_p, tdef = tree_flatten(params)
+            new_p, new_acc = adagrad_update_leaves(
+                flat_p, tdef.flatten_up_to(grads),
+                tdef.flatten_up_to(state["acc"]), **kw)
+            return tdef.unflatten(new_p), {"acc": tdef.unflatten(new_acc)}
         new_p, new_acc = _leafwise(
-            lambda p, g, a: leaf_step(p, g, a, lr=lr, beta=beta,
-                                      weight_decay=weight_decay),
+            lambda p, g, a: adagrad_leaf_update(p, g, a, **kw),
             2, params, grads, state["acc"])
         return new_p, {"acc": new_acc}
 

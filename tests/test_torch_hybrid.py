@@ -118,6 +118,87 @@ def test_mamba_scan_two_calls_chain_to_one():
     assert torch.equal(h2, h_full)
 
 
+def _states_and_c(rng, b, t, di, ds):
+    """Each step's state h_t (B, T, DI, ds) of the plain version, one call
+    a step chained through hT (bit for bit one call over T, as the test
+    above holds), its c_t (B, T, ds) and its y, as float32 numpy."""
+    _, (dt, x, b_t, c_t, a, h0) = _scan_inputs(rng, b, t, di, ds)
+    y, _ = mamba_scan(dt, x, b_t, c_t, a, h0)
+    hs, h = [], h0
+    for s in range(t):
+        _, h = mamba_scan(*(z[:, s:s + 1].contiguous()
+                            for z in (dt, x, b_t, c_t)), a, h)
+        hs.append(h.numpy())
+    return np.stack(hs, 1), c_t.numpy(), y.numpy()
+
+
+def _lane_hand_off(h, c, per_lane):
+    """K4's y as its lanes make it: G = ds / per_lane lanes a channel,
+    skewed one step each (lane q takes step i - q at iteration i); lane q
+    continues the partial sum lane q - 1 handed it the iteration before
+    (lane 0 starts at 0), adds its own products in order and hands it on
+    (a shuffle up by one lane); the last lane's sum is y."""
+    b, t, di, ds = h.shape
+    lanes = ds // per_lane
+    y = np.empty((b, t, di), np.float32)
+    carry = np.zeros((lanes, b, di), np.float32)
+    for i in range(t + lanes - 1):
+        part = np.zeros_like(carry)
+        for q in range(lanes):
+            if not 0 <= i - q < t:
+                continue
+            p = carry[q]
+            for s in range(q * per_lane, (q + 1) * per_lane):
+                p = p + h[:, i - q, :, s] * c[:, i - q, None, s]
+            part[q] = p
+        if i >= lanes - 1:
+            y[:, i - lanes + 1] = part[-1]
+        carry = np.concatenate([np.zeros_like(part[:1]), part[:-1]])
+    return y
+
+
+def _lane_sums(h, c, per_lane):
+    """The order K4 must not take: each lane's products summed from 0, the
+    lane sums then added up."""
+    ds = h.shape[-1]
+    sums = []
+    for q in range(ds // per_lane):
+        p = np.zeros(h.shape[:3], np.float32)
+        for s in range(q * per_lane, (q + 1) * per_lane):
+            p = p + h[..., s] * c[:, :, None, s]
+        sums.append(p)
+    y = sums[0]
+    for p in sums[1:]:
+        y = y + p
+    return y
+
+
+@pytest.mark.parametrize("ds,per_lane", [(16, 4), (16, 8), (32, 4),
+                                         (32, 8)])
+def test_lane_hand_off_is_bitwise_and_lane_sums_are_not(ds, per_lane):
+    """A numpy emulation of K4's lane hand-off gives the plain version's y
+    bit for bit (the kernel's order is the plain version's); summing each
+    lane from 0 and then combining does not, on the same inputs."""
+    h, c, y = _states_and_c(np.random.default_rng(ds + per_lane), 2, 9,
+                            64, ds)
+    assert np.array_equal(_lane_hand_off(h, c, per_lane), y)
+    assert not np.array_equal(_lane_sums(h, c, per_lane), y)
+
+
+@pytest.mark.parametrize("di", [100, 1000])
+@pytest.mark.parametrize("t", [1, 2, 3])
+@pytest.mark.parametrize("ds", [8, 16, 32])
+def test_mamba_scan_at_ragged_di_and_short_t_matches_jax_ref(di, t, ds):
+    """The widths K4's blocks of channels do not divide, and sequences
+    that only fill and drain its lanes' skew, from a state."""
+    rng = np.random.default_rng(di + 7 * t + ds)
+    jx, tx = _scan_inputs(rng, 2, t, di, ds, h0_scale=1.0)
+    y, hT = mamba_scan(*tx)
+    want_y, want_h = jax_mamba_scan_ref(*jx)
+    _close(y, want_y, **_tol("float32"))
+    _close(hT, want_h, **_tol("float32"))
+
+
 def _refusal(case):
     rng = np.random.default_rng(0)
     _, (dt, x, b_t, c_t, a, h0) = _scan_inputs(rng, 1, 4, 16, 8)

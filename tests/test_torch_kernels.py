@@ -14,7 +14,8 @@ import torch
 from repro.kernels.adagrad.ops import adagrad_update as jax_adagrad_update
 from repro.kernels.server_step.ops import \
     server_step_update as jax_server_step_update
-from repro_torch.kernels.adagrad.ops import adagrad_update
+from repro_torch.kernels.adagrad.ops import (adagrad_update,
+                                             adagrad_update_leaves)
 from repro_torch.kernels.server_step.ops import server_step_update
 from repro_torch.tree import as_tensor
 
@@ -153,3 +154,64 @@ def test_a_device_without_a_kernel_raises():
         server_step_update(*meta, lr=0.1)
     with pytest.raises(ValueError, match="no adagrad kernel"):
         adagrad_update(*(torch.zeros(4, device="meta"),) * 3, lr=0.1)
+
+
+def _leaves(kind, rng):
+    """Lists of (p, g, acc) leaves: ragged sizes; 0-d and empty leaves; or
+    all three (p, g) dtype pairs interleaved."""
+    def leaf(shape, pt=torch.float32, gt=torch.float32):
+        p, g, acc = (torch.from_numpy(np.asarray(rng.normal(size=shape),
+                                                 np.float32))
+                     for _ in range(3))
+        acc = acc.abs()
+        return p.to(pt), g.to(gt), acc
+    if kind == "ragged":
+        return [leaf((n,)) for n in (1, 3, 127, 1000, 4099)] + [leaf((5, 7))]
+    if kind == "0d_and_empty":
+        return [leaf(()), leaf((0,)), leaf((3, 0)), leaf((9,))]
+    pairs = ((torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.float32))
+    return [leaf((n,), *pairs[i % 3]) for i, n in enumerate((1, 8, 33, 70,
+                                                             257, 1031))]
+
+
+@pytest.mark.parametrize("kind", ["ragged", "0d_and_empty", "mixed_dtypes"])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_adagrad_update_leaves_equals_one_leaf_calls(kind, wd):
+    """On the CPU the list wrapper runs the plain version leaf by leaf: bit
+    for bit what one ``adagrad_update`` a leaf gives, and no launch."""
+    leaves = _leaves(kind, np.random.default_rng(8))
+    kw = dict(lr=0.05, beta=1.5, weight_decay=wd)
+    before = (adagrad_update.launches, adagrad_update_leaves.launches)
+    ps, accs = adagrad_update_leaves(*zip(*leaves), **kw)
+    assert (adagrad_update.launches,
+            adagrad_update_leaves.launches) == before
+    assert len(ps) == len(accs) == len(leaves)
+    for leaf, p1, a1 in zip(leaves, ps, accs):
+        p2, a2 = adagrad_update(*leaf, **kw)
+        assert p1.dtype == p2.dtype and p1.shape == p2.shape
+        assert torch.equal(p1, p2) and torch.equal(a1, a2)
+
+
+def test_adagrad_update_leaves_of_no_leaf_is_empty():
+    assert adagrad_update_leaves([], [], [], lr=0.1) == ([], [])
+
+
+@pytest.mark.parametrize("bad", ["lengths", "shape", "devices", "dtype",
+                                 "meta"])
+def test_adagrad_update_leaves_refuses(bad):
+    leaves = _leaves("ragged", np.random.default_rng(9))
+    ps, gs, accs = (list(z) for z in zip(*leaves))
+    if bad == "lengths":
+        gs = gs[:-1]
+    elif bad == "shape":
+        accs[2] = torch.zeros(5)
+    elif bad == "devices":
+        ps[1], gs[1], accs[1] = (t.to("meta") for t in leaves[1])
+    elif bad == "dtype":
+        gs[0] = gs[0].to(torch.bfloat16)    # f32 p with a bf16 gradient
+    else:
+        ps, gs, accs = ([t.to("meta") for t in z] for z in (ps, gs, accs))
+    with pytest.raises((TypeError, ValueError)):
+        adagrad_update_leaves(ps, gs, accs, lr=0.1)

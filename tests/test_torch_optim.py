@@ -1,12 +1,16 @@
 """``repro_torch.optim`` against ``repro.optim`` on the same numpy inputs:
-three steps of each optimizer over a small nested tree, f32 and bf16."""
+three steps of each optimizer over a small nested tree, f32 and bf16, and
+of the kernel's AdaGrad over the paper's FIG2 net."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.optim as jopt
 import repro_torch.optim as topt
+from repro_torch.configs.paper_cnn import FIG2_CNN
+from repro_torch.models import cnn
 from repro_torch.tree import as_tensor, tree_leaves, tree_map
 
 
@@ -80,3 +84,28 @@ def test_updates_leave_their_inputs_alone():
 def test_unknown_optimizer_raises():
     with pytest.raises(KeyError):
         topt.get_optimizer("lamb", 0.1)
+
+
+def test_adagrad_kernel_over_the_fig2_tree_matches_jax():
+    """The quickstart's optimizer: every FIG2 leaf through one
+    ``adagrad_update_leaves`` call a step (here its plain version) against
+    the JAX package's kernel, launched once a leaf (interpret mode)."""
+    params = cnn.params_to_numpy(cnn.init_cnn(torch.Generator().manual_seed(0),
+                                              FIG2_CNN, "cpu"))
+    rng = np.random.default_rng(13)
+    grads = [jax.tree_util.tree_map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32) * 0.5, params)
+        for _ in range(3)]
+    kw = dict(adagrad_beta=1.0, use_kernel=True)
+    j_out = _run(jopt.get_optimizer("adagrad", 0.02, **kw),
+                 jax.tree_util.tree_map(jnp.asarray, params),
+                 [jax.tree_util.tree_map(jnp.asarray, g) for g in grads])
+    t_out = _run(topt.get_optimizer("adagrad", 0.02, **kw),
+                 tree_map(as_tensor, params),
+                 [tree_map(as_tensor, g) for g in grads])
+    j_leaves = jax.tree_util.tree_leaves(j_out)
+    t_leaves = tree_leaves(t_out)
+    assert len(j_leaves) == len(t_leaves) == 2 * 8
+    for a, b in zip(j_leaves, t_leaves):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   **_tol("float32"))

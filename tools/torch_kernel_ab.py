@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Time the port's flash attention (K3) and WKV (K5) kernels against other
-builds of the same C interface, in turns, on one CUDA card.
+"""Time the port's modified AdaGrad (K2), flash attention (K3), Mamba scan
+(K4) and WKV (K5) kernels against other builds of the same C interface, in
+turns, on one CUDA card.
 
     python3 tools/torch_kernel_ab.py \\
+        --cand k2:parent:OLD_ADAGRAD.cu \\
         --cand k3:parent:OLD_FLASH_ATTENTION.cu \\
+        --cand k4:parent:OLD_MAMBA.cu \\
         --cand k5:parent:OLD_RWKV6.cu \\
         --cand k5:variant:VARIANT.cu:-DNAME=VALUE
 
 A candidate is ``kernel:label:source[:flag...]``.  It is compiled with its
 kernel's flags from ``repro_torch.kernels.build`` plus its own into
 ``build/kernel_ab/``, loaded with ctypes, and held to the plain version on
-the timed inputs (K3 within ``chip_smoke.TOL_F32``, K5 bitwise), unless
-its label starts with ``diag`` (a diagnostic build that leaves work out).
-Then, at each main-path shape, the candidate and the kernel of the tree
-(through its wrapper) are timed by ``chip_smoke.ColdTimer`` in the order
-candidate, tree, tree, candidate; each gets the mean of its two medians.
-At the decode shape K5 is also set beside one copy of its state (the
+the timed inputs (K3 within ``chip_smoke.TOL_F32``, K2, K4 and K5
+bitwise), unless its label starts with ``diag`` (a diagnostic build that
+leaves work out).  Then, at each main-path shape, the candidate and the
+kernel of the tree (through its wrapper) are timed by
+``chip_smoke.ColdTimer`` in the order candidate, tree, tree, candidate;
+each gets the mean of its two medians.  K2's shapes are the FIG2 step
+(8 leaves) and one f32 leaf of 1,000,003; a K2 candidate with the older
+C entry (``repro_adagrad_update``, one leaf a launch) is called once a
+leaf, and K2 is set beside one launch of a 1-element ``add_``.  At the
+decode shape K4 and K5 are also set beside one copy of their state (the
 bytes the step must move).  The last line is one JSON object with every
 time, beside the card's ``nvidia-smi --query-gpu=name,power.limit`` line.
 Needs one card.
@@ -27,6 +34,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -36,21 +44,34 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 import torch  # noqa: E402
 
+from repro_torch.configs.paper_cnn import FIG2_CNN  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.adagrad import ops as adagrad_ops  # noqa: E402
+from repro_torch.kernels.adagrad.ref import adagrad_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba.ops import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba.ref import mamba_scan_ref  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "kernel_ab")
 #: kernel -> (directory in kernels/, C entry, the main path's shapes)
 KERNELS = {
+    "k2": ("adagrad", None,
+           {"fig2_step": None, "n1000003": (1_000_003,)}),
     "k3": ("flash_attention", "repro_flash_attention",
            {"qwen3-4b": (4, 512, 32, 8, 128), "jamba": (4, 512, 64, 8, 128)}),
+    "k4": ("mamba", "repro_mamba_scan",
+           {"prefill": (4, 512, 16384, 16), "decode": (4, 1, 16384, 16)}),
     "k5": ("rwkv6", "repro_wkv",
            {"prefill": (4, 512, 32, 64), "decode": (4, 1, 32, 64)}),
 }
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: K2's learning rate and beta (the quickstart's)
+K2_KW = dict(lr=0.02, beta=1.0)
 
 
 def compile_candidate(kernel: str, label: str, source: str, flags) -> str:
@@ -62,6 +83,11 @@ def compile_candidate(kernel: str, label: str, source: str, flags) -> str:
     if proc.returncode:
         raise RuntimeError(f"{label}: nvcc failed\n{proc.stdout}"
                            f"{proc.stderr}")
+    # ptxas's registers and spills for each CUDA function, in order
+    usage = re.findall(r"(\d+) bytes spill stores.*?Used (\d+) registers",
+                       proc.stdout + proc.stderr, re.S)
+    print(f"[ab] {kernel} {label} ptxas " + ",".join(
+        f"regs={r}:spill_bytes={sp}" for sp, r in usage), flush=True)
     return out
 
 
@@ -79,6 +105,85 @@ def k5_inputs(gen, b, t, h, hd):
     u = 0.1 * torch.randn(h, hd, generator=gen, device="cuda")
     s0 = 0.1 * torch.randn(b, h, hd, hd, generator=gen, device="cuda")
     return r, k, v, w, u, s0
+
+
+def k2_inputs(gen, shape):
+    """(p, g, acc) leaves, all f32: the FIG2 net's 8 (``shape`` None) or
+    one of ``shape``."""
+    shapes = ([tuple(x.shape) for x in tree_leaves(cnn.init_cnn(
+        torch.Generator().manual_seed(0), FIG2_CNN, "cpu"))]
+              if shape is None else [shape])
+    return [(torch.randn(s, generator=gen, device="cuda"),
+             torch.randn(s, generator=gen, device="cuda"),
+             torch.randn(s, generator=gen, device="cuda").abs())
+            for s in shapes]
+
+
+def k4_inputs(gen, b, t, di, ds):
+    """chip_smoke's scan inputs (a decode step from a unit-scale state)."""
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    def n(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    return (0.001 + 0.099 * u(b, t, di), n(b, t, di), n(b, t, ds),
+            n(b, t, ds), -(0.5 + 3.5 * u(di, ds)),
+            (1.0 if t == 1 else 0.1) * n(b, di, ds))
+
+
+def k2_caller(lib, leaves):
+    """One call over all the leaves with the list entry, or, for an older
+    build, one launch a leaf."""
+    outs = [(torch.empty_like(p), torch.empty_like(a)) for p, _, a in leaves]
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "repro_adagrad_update_leaves"):
+        fn = lib.repro_adagrad_update_leaves
+        fn.restype = _I
+        fn.argtypes = adagrad_ops._ARGTYPES + [_P]
+        ptrs = [(_P * len(leaves))(*(t.data_ptr() for t in ts))
+                for ts in (*zip(*leaves), *zip(*outs))]
+        ns = (ctypes.c_longlong * len(leaves))(*(p.numel()
+                                                 for p, _, _ in leaves))
+
+        def launches():
+            yield fn(*ptrs, ns, len(leaves), 0, 0, K2_KW["lr"],
+                     K2_KW["beta"], 0, 0.0, stream)
+    else:
+        fn = lib.repro_adagrad_update
+        fn.restype = _I
+        fn.argtypes = [_P] * 5 + [ctypes.c_longlong, _I, _I, _F, _F, _I,
+                                  _F, _P]
+
+        def launches():
+            for (p, g, a), (p1, a1) in zip(leaves, outs):
+                yield fn(p.data_ptr(), g.data_ptr(), a.data_ptr(),
+                         p1.data_ptr(), a1.data_ptr(), p.numel(), 0, 0,
+                         K2_KW["lr"], K2_KW["beta"], 0, 0.0, stream)
+
+    def call():
+        for code in launches():
+            if code:
+                raise RuntimeError(f"launch failed: CUDA error {code}")
+        return outs
+    return call
+
+
+def k4_caller(lib, dt, x, b_t, c_t, a, h0):
+    fn = lib.repro_mamba_scan
+    fn.restype = _I
+    fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    b, t, di = dt.shape
+    y, hT = torch.empty_like(dt), torch.empty_like(h0)
+
+    def call():
+        code = fn(dt.data_ptr(), x.data_ptr(), b_t.data_ptr(),
+                  c_t.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                  hT.data_ptr(), b, t, di, b_t.shape[2], 0,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"launch failed: CUDA error {code}")
+        return y, hT
+    return call
 
 
 def k3_caller(lib, q, k, v):
@@ -116,9 +221,21 @@ def k5_caller(lib, r, k, v, w, u, s0):
 
 
 def compare(kernel, lib, shape, gen, checked=True):
-    """(candidate's call, the tree's call, the bound) at ``shape``, after
-    holding the candidate's output to the plain version (unless not
-    ``checked``)."""
+    """(candidate's call, the tree's call, the bound, the state it carries
+    or None) at ``shape``, after holding the candidate's output to the
+    plain version (unless not ``checked``)."""
+    if kernel == "k2":
+        leaves = k2_inputs(gen, shape)
+        cand = k2_caller(lib, leaves)
+        ps, gs, accs = (list(z) for z in zip(*leaves))
+        got = cand()
+        torch.cuda.synchronize()
+        cs.check(not checked or all(
+            torch.equal(x, y) for leaf, out in zip(leaves, got)
+            for x, y in zip(out, adagrad_ref(*leaf, **K2_KW))),
+            "k2 candidate bitwise equal to its plain version")
+        return (cand, lambda: adagrad_ops.adagrad_update_leaves(
+            ps, gs, accs, **K2_KW), cs._k2_bound(ps, gs)[0], None)
     if kernel == "k3":
         q, k, v = k3_inputs(gen, *shape)
         cand, tree = k3_caller(lib, q, k, v), lambda: flash_attention(q, k, v)
@@ -129,20 +246,27 @@ def compare(kernel, lib, shape, gen, checked=True):
         cs.check(not checked or cs._within(got, want, **cs.TOL_F32),
                  f"k3 candidate within {cs.TOL_F32}: max err "
                  f"{cs._max_err(got, want)}")
-        return cand, tree, cs._k3_bound(q, k)[0]
-    ins = k5_inputs(gen, *shape)
-    cand, tree = k5_caller(lib, *ins), lambda: wkv(*ins)
-    (y, sT), (y_ref, s_ref) = cand(), wkv_ref(*ins)
+        return cand, tree, cs._k3_bound(q, k)[0], None
+    if kernel == "k4":
+        ins = k4_inputs(gen, *shape)
+        cand, tree, plain = k4_caller(lib, *ins), mamba_scan, mamba_scan_ref
+        state, bound = ins[5], cs._k4_bound(ins)[0]
+    else:
+        ins = k5_inputs(gen, *shape)
+        cand, tree, plain = k5_caller(lib, *ins), wkv, wkv_ref
+        state, bound = ins[5], cs._k5_bound(ins[0], ins[5])[0]
+    got, want = cand(), plain(*ins)
     torch.cuda.synchronize()
-    cs.check(not checked or torch.equal(y, y_ref) and torch.equal(sT, s_ref),
-             "k5 candidate bitwise equal to its plain version")
-    return cand, tree, cs._k5_bound(ins[0], ins[5])[0]
+    cs.check(not checked or all(torch.equal(x, y) for x, y in zip(got, want)),
+             f"{kernel} candidate bitwise equal to its plain version")
+    return cand, lambda: tree(*ins), bound, state
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cand", action="append", required=True,
-                    help="kernel:label:source[:flag...], kernel k3 or k5")
+                    help="kernel:label:source[:flag...], kernel k2, k3, "
+                         "k4 or k5")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -161,22 +285,28 @@ def main() -> int:
         kernel, label, source, *flags = spec.split(":")
         lib = ctypes.CDLL(compile_candidate(kernel, label, source, flags))
         for shape_name, shape in KERNELS[kernel][2].items():
-            cand, tree, bound = compare(kernel, lib, shape, gen,
-                                        checked=not label.startswith("diag"))
+            cand, tree, bound, state = compare(
+                kernel, lib, shape, gen,
+                checked=not label.startswith("diag"))
             c1, t1, t2, c2 = (timer(fn) for fn in (cand, tree, tree, cand))
             row = {"candidate_ms": (c1 + c2) / 2, "tree_ms": (t1 + t2) / 2,
                    "turns_ms": [c1, t1, t2, c2], "bound_ms": bound}
-            if kernel == "k5" and shape[1] == 1:
+            if state is not None and shape[1] == 1:
                 # a yardstick for the decode step: one copy of the state,
-                # the bytes the step must move (s0 in, sT out)
-                s0 = torch.empty(shape[0], shape[2], shape[3], shape[3],
-                                 device="cuda")
-                row["state_copy_ms"] = timer(s0.clone)
+                # the bytes the step must move (h0 or s0 in, hT or sT out)
+                copy = torch.empty_like(state)
+                row["state_copy_ms"] = timer(lambda: copy.copy_(state))
+            if kernel == "k2":
+                # a yardstick for a small step: one launch that does
+                # nearly nothing
+                one = torch.zeros(1, device="cuda")
+                row["launch_floor_ms"] = timer(lambda: one.add_(1.0))
             results[f"{kernel}:{label}:{shape_name}"] = row
             print(f"[ab] {kernel} {label} {shape_name} shape={shape} "
                   f"candidate_ms={row['candidate_ms']:.6f} "
                   f"tree_ms={row['tree_ms']:.6f} bound_ms={bound:.6f} "
                   f"state_copy_ms={row.get('state_copy_ms')} "
+                  f"launch_floor_ms={row.get('launch_floor_ms')} "
                   f"turns={','.join(f'{x:.6f}' for x in row['turns_ms'])}",
                   flush=True)
             del cand, tree
