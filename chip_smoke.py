@@ -11,18 +11,21 @@ Phases, one line each:
      TF32 off and cuDNN deterministic, so the checks below are exact;
   2. build: the five CUDA kernels from the checkout's sources (nvcc, first
      use, all at once), and ptxas's registers and spills for each CUDA
-     function (K2, K3, K4 and K5 must not spill);
+     function (none may spill);
   3. each kernel against its plain PyTorch version on the card, over edge
      and main-path sizes: K1, K2 and K5 (WKV) bitwise, K3 (flash
-     attention) within ``tests/test_kernels.py::_tol``; K2 one leaf a
-     call and in lists (the FIG2 step, mixed dtype pairs, empty, 0-d and
-     unaligned leaves, more leaves than a launch takes); each kernel's and
-     its plain version's times on the card at the main path's shapes
-     beside the card's bound (K1, K2 also as a caller that issues one
-     call at a time waits for them, ``unheld``; K2 also one launch a leaf
-     and beside one launch of a 1-element ``add_``; K3 also beside
-     PyTorch's ``scaled_dot_product_attention``, which nothing on the path
-     calls);
+     attention) within ``tests/test_kernels.py::_tol``; K1 at every member
+     count it instantiates (1-5, 8) and its generic loop (9), on a pitched
+     gradient stack and a contiguous one, with p aligned and at a
+     1-element offset; K2 one leaf a call and in lists (the FIG2 step,
+     mixed dtype pairs, empty, 0-d and unaligned leaves, more leaves than a
+     launch takes); each kernel's and its plain version's times on the
+     card at the main path's shapes beside the card's bound (K1 at the
+     FIG4 step with M 4 and 8 on both stacks and at a 537 MB bandwidth
+     shape; K1 and K2 beside one launch of a 1-element ``add_``, and also
+     as a caller that issues one call at a time waits for them,
+     ``unheld``; K2 also one launch a leaf; K3 also beside PyTorch's
+     ``scaled_dot_product_attention``, which nothing on the path calls);
      3c. K4 (the Mamba selective scan) likewise, bitwise in every case,
      ragged DI, T 1-3 and 65 for every ds and B 3 included, and its exp
      bitwise equal to ``torch.exp`` (a case isolates the exp); its decode
@@ -31,7 +34,13 @@ Phases, one line each:
      through a FederatedDistributor behind a TransportServer with 3 remote
      v2-wire clients on loopback, K-of-N reticket barrier, FusedServerStep
      on the card; held to its in-process twin (TreeServerStep), and a
-     round checkpoint written and reloaded bit-exactly;
+     round checkpoint written and reloaded bit-exactly; each round's whole
+     ``FusedServerStep.step`` timed (host clock to a synchronize) and split
+     into the host stack build, its upload, K1 and the rest, beside the
+     twin's ``TreeServerStep.step``; and the stack's build and upload
+     three ways: as the step builds it (a kept page-locked host buffer),
+     into a new pageable buffer, and the contiguous ``torch.stack`` it
+     replaced;
   5. the quickstart path: the FIG2 CNN trained in-process with
      ``adagrad(use_kernel=True)``, one K2 launch a step for all 8 leaves;
   6. serving qwen3-4b at full width and depth (f32, random weights from a
@@ -94,7 +103,8 @@ from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
 from repro_torch.models import cnn, hybrid, layers, mamba, rwkv  # noqa: E402
 from repro_torch.models.moe import dispatch_load  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.train_fabric import server_step as step_mod  # noqa: E402
+from repro_torch.tree import tree_flatten, tree_leaves  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 (non-tensor-core)
 #: flop/s and TF32 tensor-core flop/s; the bound of a kernel is the larger
@@ -104,6 +114,11 @@ PEAK_F32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
 
 KERNEL_SIZES = (1, 127, 8192, 609_258, 1_000_003)
+#: K1's member counts: each instantiation of its kernel (1-5, 8) and the
+#: generic loop (9)
+K1_MEMBERS = (1, 2, 3, 4, 5, 8, 9)
+#: K1's bandwidth shape: 537 MB at M 4, where one launch's cost is small
+K1_BIG_N = 16_777_219
 #: (p, g) dtypes K2 takes: g in p's dtype, or f32 under bf16 params
 #: (TreeServerStep's mean is f32)
 K2_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -278,23 +293,36 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     def rand(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # K1: the fused server step
+    # K1: the fused server step, bitwise against its plain version for
+    # every member count it instantiates, on a pitched stack (rows padded to
+    # 128-byte lines: the 16-byte path) and a contiguous one (rows at odd
+    # offsets where n mod 4 != 0 and M > 1: the scalar path), and with p a
+    # view at a 1-element offset (the scalar path)
     k1_err, k1_cases = 0.0, 0
     for n in KERNEL_SIZES:
-        for members in (1, 4):
+        for members in K1_MEMBERS:
             for wd in (0.0, 1e-2):
-                p, acc = rand(n), rand(n).abs()
-                g = rand(members, n)
-                c = torch.rand(members, generator=gen, device="cuda")
-                kw = dict(lr=FABRIC_LR, beta=1.0, weight_decay=wd)
-                got = server_step_update(p, g, acc, c, **kw)
-                want = server_step_ref(p, g, acc, c, **kw)
-                torch.cuda.synchronize()
-                for x, y, what in zip(got, want, ("p'", "acc'")):
-                    check(torch.equal(x, y), f"K1 {what} bitwise equal to "
-                          f"the plain version at n={n} M={members} wd={wd}")
-                    k1_err = max(k1_err, _max_err(x, y))
-                k1_cases += 1
+                for pitched in (True, False):
+                    for offset in (0, 1):
+                        p = rand(n + offset)[offset:]
+                        acc = rand(n).abs()
+                        g = _k1_stack(rand, members, n, pitched)
+                        c = torch.rand(members, generator=gen, device="cuda")
+                        kw = dict(lr=FABRIC_LR, beta=1.0, weight_decay=wd)
+                        before = server_step_update.launches
+                        got = server_step_update(p, g, acc, c, **kw)
+                        want = server_step_ref(p, g, acc, c, **kw)
+                        torch.cuda.synchronize()
+                        where = (f"n={n} M={members} wd={wd} "
+                                 f"{'pitched' if pitched else 'contiguous'} "
+                                 f"stack, p offset {offset}")
+                        check(server_step_update.launches == before + 1,
+                              f"K1 one launch at {where}")
+                        for x, y, what in zip(got, want, ("p'", "acc'")):
+                            check(torch.equal(x, y), f"K1 {what} bitwise "
+                                  f"equal to the plain version at {where}")
+                            k1_err = max(k1_err, _max_err(x, y))
+                        k1_cases += 1
     # K2, each leaf bitwise equal to its own plain version: one leaf a
     # call at edge sizes for every (p, g) dtype pair the wrapper takes; then
     # lists in one call, each making the launches its pairs and the
@@ -355,16 +383,32 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     # times at the main path's shapes
     n4 = sum(x.numel() for x in tree_leaves(cnn.init_cnn(
         torch.Generator().manual_seed(0), FIG4_CNN, "cuda")))
-    members = FABRIC_SHARDS
-    p, acc, g = rand(n4), rand(n4).abs(), rand(members, n4)
-    c = torch.full((members,), 1.0 / members, device="cuda")
-    kw = dict(lr=FABRIC_LR, beta=1.0)
-    k1_ms = timer(lambda: server_step_update(p, g, acc, c, **kw))
-    k1_plain = timer(lambda: server_step_ref(p, g, acc, c, **kw))
-    k1_unheld = unheld(lambda: server_step_update(p, g, acc, c, **kw))
-    k1_bytes = (members + 4) * 4 * n4 + 4 * members
-    k1_flops = (2 * members + 7) * n4
-    k1_bound = 1e3 * max(k1_bytes / PEAK_BYTES_S, k1_flops / PEAK_F32_FLOP_S)
+    # one launch that does nearly nothing: the timer's floor for any launch
+    one = torch.zeros(1, device="cuda")
+    launch_floor = timer(lambda: one.add_(1.0))
+    k1_times = {}
+    for name, n, members, pitched in _k1_timed_cases(n4):
+        p, acc = rand(n), rand(n).abs()
+        g = _k1_stack(rand, members, n, pitched)
+        c = torch.full((members,), 1.0 / members, device="cuda")
+        kw = dict(lr=FABRIC_LR, beta=1.0)
+        got = server_step_update(p, g, acc, c, **kw)
+        want = server_step_ref(p, g, acc, c, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"K1 bitwise equal to the plain version at {name}")
+        k1_times[name] = dict(
+            ms=timer(lambda: server_step_update(p, g, acc, c, **kw)),
+            bound_ms=_k1_bound(n, members)[0])
+        if name in ("fig4_m4_pitched", "big_m4_pitched"):
+            k1_times[name]["plain_ms"] = timer(
+                lambda: server_step_ref(p, g, acc, c, **kw))
+        if name == "fig4_m4_pitched":
+            k1_times[name]["unheld_ms"] = unheld(
+                lambda: server_step_update(p, g, acc, c, **kw))
+        del p, acc, g, got, want
+    k1 = k1_times["fig4_m4_pitched"]
+    k1_bound, k1_by = _k1_bound(n4, FABRIC_SHARDS)
 
     leaves = tree_leaves(cnn.init_cnn(torch.Generator().manual_seed(0),
                                       FIG2_CNN, "cuda"))
@@ -387,8 +431,6 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     k2_unheld = unheld(one_call)
     k2_bound, _ = _k2_bound(leaves, grads)
     n2 = sum(x.numel() for x in leaves)
-    one = torch.zeros(1, device="cuda")
-    k2_floor = timer(lambda: one.add_(1.0))
     big = k2_leaf((KERNEL_SIZES[-1],))
     k2_big_ms = timer(lambda: adagrad_update_leaves(*([z] for z in big),
                                                     **kw2))
@@ -396,12 +438,18 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
     k2_big_bound, k2_big_by = _k2_bound([big[0]], [big[1]])
 
     say("3 kernels", k1_cases=k1_cases, k1_bitwise="yes",
-        k1_ms=f"{k1_ms:.6f}", k1_plain_ms=f"{k1_plain:.6f}",
-        k1_bound_ms=f"{k1_bound:.6f}", k1_unheld_ms=f"{k1_unheld:.6f}",
-        k1_shape=f"n={n4},M={members}",
+        k1_ms=f"{k1['ms']:.6f}", k1_plain_ms=f"{k1['plain_ms']:.6f}",
+        k1_bound_ms=f"{k1_bound:.6f}", k1_unheld_ms=f"{k1['unheld_ms']:.6f}",
+        k1_shape=f"n={n4},M={FABRIC_SHARDS},pitched",
+        **{f"k1_{name}_{key}": f"{t[key]:.6f}"
+           for name, t in k1_times.items()
+           for key in ("ms", "bound_ms", "plain_ms") if key in t},
+        **{f"k1_{name}_above_floor_ms": f"{t['ms'] - launch_floor:.6f}"
+           for name, t in k1_times.items()},
+        k1_big_shape=f"n={K1_BIG_N},M=4",
         k2_cases=k2_cases, k2_bitwise="yes", k2_step_ms=f"{k2_ms:.6f}",
         k2_per_leaf_step_ms=f"{k2_per_leaf:.6f}",
-        k2_launch_floor_ms=f"{k2_floor:.6f}",
+        k2_launch_floor_ms=f"{launch_floor:.6f}",
         k2_plain_step_ms=f"{k2_plain:.6f}",
         k2_step_bound_ms=f"{k2_bound:.6f}",
         k2_unheld_step_ms=f"{k2_unheld:.6f}",
@@ -414,8 +462,9 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
             "name": "server_step", "route": "cuda",
             "source": "src/repro_torch/kernels/server_step/kernel.cu",
             "replaces": "src/repro/kernels/server_step/kernel.py:36",
-            "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-            "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
+            "max_abs_err": k1_err, "ms": k1["ms"],
+            "plain_ms": k1["plain_ms"], "bound_ms": k1_bound,
+            "bound_by": k1_by, "library_ms": None},
         "adagrad": {
             "name": "adagrad", "route": "cuda",
             "source": "src/repro_torch/kernels/adagrad/kernel.cu",
@@ -423,6 +472,32 @@ def phase_kernels(timer: ColdTimer, unheld: ColdTimer) -> dict:
             "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
             "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None},
     }
+
+
+def _k1_stack(rand, members: int, n: int, pitched: bool):
+    """(members, n) f32 gradients: the first n columns of an (members, ld)
+    buffer, ld being n rounded up as ``FusedServerStep`` pads its rows
+    (``pitched``), or one contiguous buffer."""
+    if not pitched:
+        return rand(members, n)
+    return rand(members, step_mod.row_pitch(n))[:, :n]
+
+
+def _k1_timed_cases(n4: int) -> tuple:
+    """K1's timed cases (name, n, M, pitched): the fabric's FIG4 step at
+    M 4 (its main path: pitched) and M 8, each on both stacks, and the
+    bandwidth shape."""
+    return tuple((f"fig4_m{m}_{'pitched' if pitched else 'contiguous'}",
+                  n4, m, pitched) for m in (4, 8) for pitched in (True, False)
+                 ) + (("big_m4_pitched", K1_BIG_N, 4, True),)
+
+
+def _k1_bound(n: int, members: int) -> tuple:
+    """Bytes: p, acc and M gradient rows read and p' and acc' written
+    once, and the M coefficients.  Operations: about 2M + 7 an element
+    (kernel.cu's header)."""
+    return _bound((members + 4) * 4 * n + 4 * members,
+                  (2 * members + 7) * n)
 
 
 def _k2_bound(ps, gs) -> tuple:
@@ -797,10 +872,52 @@ async def _fabric_train(rounds: int, n_clients: int = 3):
     return loop, trainer, errors
 
 
+def _synced(fn, *args, **kwargs) -> tuple:
+    """(``fn``'s result, its host seconds from a ``torch.cuda.synchronize()``
+    before the call to one after it, so they hold the card's work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _timed(owner, attr: str):
+    """Within the block, every call of ``owner.attr`` (a function of a
+    module, or a method of a class) is timed by :func:`_synced`; yields
+    the list of seconds, one a call."""
+    fn = getattr(owner, attr)
+    seconds = []
+
+    def timed(*args, **kwargs):
+        out, took = _synced(fn, *args, **kwargs)
+        seconds.append(took)
+        return out
+
+    setattr(owner, attr, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, attr, fn)
+
+
+def _ms_median(seconds) -> str:
+    return f"{1e3 * statistics.median(seconds):.3f}"
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median host milliseconds of ``fn`` from a synchronize before it to
+    one after it."""
+    return 1e3 * statistics.median(_synced(fn)[1] for _ in range(reps))
+
+
 def _in_process_twin(rounds: int):
     """The fabric run's twin: the same CnnGradShard calls over the same
     round shards, folded by the TreeServerStep reference.  Returns its
-    per-round losses, final params and final optimizer state."""
+    per-round losses, final params and final optimizer state, the seconds
+    of each round's ``TreeServerStep.step`` and the last round's gradient
+    trees (numpy, as the wire delivers them)."""
     from repro_torch.optim import adagrad
     from repro_torch.train_fabric import TreeServerStep
 
@@ -811,14 +928,15 @@ def _in_process_twin(rounds: int):
     opt_state = opt.init(params)
     step = TreeServerStep(opt)
     losses = []
-    for t in range(rounds):
-        served = {"round": t, "params": cnn.params_to_numpy(params)}
-        outs = [task(a, {"weights": served}) for a in args]
-        params, opt_state = step.step([o["grad"] for o in outs], work,
-                                      params, opt_state)
-        losses.append(sum(o["loss"] * w for o, w in zip(outs, work))
-                      / sum(work))
-    return losses, params, opt_state
+    with _timed(TreeServerStep, "step") as step_s:
+        for t in range(rounds):
+            served = {"round": t, "params": cnn.params_to_numpy(params)}
+            outs = [task(a, {"weights": served}) for a in args]
+            grads = [o["grad"] for o in outs]
+            params, opt_state = step.step(grads, work, params, opt_state)
+            losses.append(sum(o["loss"] * w for o, w in zip(outs, work))
+                          / sum(work))
+    return losses, params, opt_state, step_s, grads
 
 
 def _same_bits(a, b) -> bool:
@@ -830,11 +948,22 @@ def phase_fabric() -> int:
     from repro_torch.train_fabric import (load_round_checkpoint,
                                           param_count, state_to_tree)
 
-    _zero_counts()
-    t0 = time.perf_counter()
-    loop, trainer, errors = asyncio.run(_fabric_train(FABRIC_ROUNDS))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # each round's FusedServerStep.step, split into the host stack build
+    # (the leaves written into the rows of one host buffer), its upload
+    # (gradient_stack less the build), K1 and the rest (coefficients, the
+    # params' and accumulator's concatenation, slicing the results back)
+    with contextlib.ExitStack() as timing:
+        step_s, stack_s, build_s, k1_s = (
+            timing.enter_context(_timed(owner, attr)) for owner, attr in (
+                (step_mod.FusedServerStep, "step"),
+                (step_mod, "gradient_stack"),
+                (step_mod, "_fill_rows"),
+                (step_mod, "server_step_update")))
+        _zero_counts()
+        t0 = time.perf_counter()
+        loop, trainer, errors = asyncio.run(_fabric_train(FABRIC_ROUNDS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = server_step_update.launches
     check(launches == FABRIC_ROUNDS,
           f"server_step launched once per round: {launches} launches in "
@@ -846,7 +975,11 @@ def phase_fabric() -> int:
     check(len(losses) == FABRIC_ROUNDS and all(np.isfinite(losses)),
           f"finite loss every round: {losses}")
     check(losses[-1] < losses[0], f"the loss falls: {losses}")
-    twin, twin_params, twin_opt = _in_process_twin(FABRIC_ROUNDS)
+    check(len(step_s) == len(stack_s) == len(build_s) == len(k1_s)
+          == FABRIC_ROUNDS, f"one timed server step a round: "
+          f"{len(step_s)} steps, {len(k1_s)} K1 calls")
+    twin, twin_params, twin_opt, tree_s, grads = _in_process_twin(
+        FABRIC_ROUNDS)
     delta = max(abs(a - b) for a, b in zip(losses, twin))
     check(delta < 1e-6, f"fabric trajectory within 1e-6 of its in-process "
           f"twin: {losses} vs {twin}")
@@ -868,6 +1001,30 @@ def phase_fabric() -> int:
     check(len(want) == len(got)
           and all(_same_bits(a, b) for a, b in zip(want, got)),
           "round checkpoint reloads bit-exactly")
+    # the stack as FusedServerStep builds it (pitched, in a kept
+    # page-locked host buffer) against the same in a new pageable buffer
+    # each call and against the contiguous stack it replaced (one
+    # torch.cat a member, then torch.stack), each uploaded, on the last
+    # round's gradients, in turns
+    tdef = tree_flatten(twin_params)[1]
+    n = param_count(twin_params)
+    staging = torch.empty((len(grads), step_mod.row_pitch(n)),
+                          pin_memory=True)
+    builds = {
+        "staged": lambda: step_mod.gradient_stack(grads, tdef, n, "cuda",
+                                                  staging),
+        "fresh": lambda: step_mod.gradient_stack(
+            grads, tdef, n, "cuda", torch.empty(staging.shape)),
+        "cat_stack": lambda: torch.stack(
+            [step_mod._flat32(tdef.flatten_up_to(g)) for g in grads]
+        ).to("cuda")}
+    want = builds["cat_stack"]()
+    check(all(torch.equal(fn(), want) for fn in builds.values()),
+          "every stack build holds the same gradients")
+    order = list(builds) + list(builds)[::-1]
+    turns = [(name, _host_ms(builds[name])) for name in order]
+    stack_ms = {name: statistics.mean(ms for k, ms in turns if k == name)
+                for name in builds}
     say("4 fabric", model=FIG4_CNN.name,
         params=param_count(loop.state.params), rounds=FABRIC_ROUNDS,
         shards=f"{FABRIC_SHARDS}x{FABRIC_BATCH}", clients="3_remote_v2",
@@ -876,7 +1033,19 @@ def phase_fabric() -> int:
         stale=loop.stale_executions,
         errors=errors, reticketed=trainer.reticketed_total,
         server_step_launches=launches, checkpoint="bit-exact",
-        wall_s=f"{wall:.3f}")
+        wall_s=f"{wall:.3f}",
+        fused_step_ms_median=_ms_median(step_s),
+        fused_build_ms_median=_ms_median(build_s),
+        fused_upload_ms_median=_ms_median(
+            [a - b for a, b in zip(stack_s, build_s)]),
+        fused_k1_ms_median=_ms_median(k1_s),
+        fused_rest_ms_median=_ms_median(
+            [a - b - c for a, b, c in zip(step_s, stack_s, k1_s)]),
+        fused_step_ms=",".join(f"{1e3 * x:.3f}" for x in step_s),
+        **{f"stack_{name}_ms": f"{ms:.3f}" for name, ms in stack_ms.items()},
+        stack_turns_ms=",".join(f"{name}:{ms:.3f}" for name, ms in turns),
+        tree_step_ms_median=_ms_median(tree_s),
+        tree_step_ms=",".join(f"{1e3 * x:.3f}" for x in tree_s))
     return launches
 
 
@@ -1270,7 +1439,10 @@ def _ptxas(name: str) -> list:
             fn, spill = m.group(1), 0
             t = re.search(r"\d([a-z][a-z_]*_kernel)I(f|\w+?bfloat16)"
                           r"Li(\d+)E(?:Lb([01])E)?", fn)
-            if t:
+            k1 = re.search(r"\d(server_step_kernel)ILi(\d+)ELi(\d+)E", fn)
+            if k1:
+                fn = f"{k1.group(1)}<M={k1.group(2)},W={k1.group(3)}>"
+            elif t:
                 dtype = "f32" if t.group(2) == "f" else "bf16"
                 vec = {None: "", "1": ",vec", "0": ",scalar"}[t.group(4)]
                 fn = f"{t.group(1)}<{dtype},{t.group(3)}{vec}>"
@@ -1298,9 +1470,8 @@ def main() -> int:
         say("2 ptxas", kernel=name, functions=",".join(
             f"{fn}:regs={regs}:spill_bytes={spill}"
             for fn, regs, spill in fns))
-        if name in ("adagrad", "flash_attention", "rwkv6", "mamba"):
-            check(fns and all(spill == 0 for _, _, spill in fns),
-                  f"{name}'s kernels spill no registers")
+        check(fns and all(spill == 0 for _, _, spill in fns),
+              f"{name}'s kernels spill no registers")
     timer = ColdTimer()
     kernels = phase_kernels(timer, ColdTimer(hold=False))
     kernels.update(phase_lm_kernels(timer))

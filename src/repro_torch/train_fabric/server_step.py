@@ -10,9 +10,10 @@ per-member gradients into the next round's weights:
     :class:`~repro_torch.optim.Optimizer`.
   * :class:`FusedServerStep` — the paper's modified AdaGrad as ONE kernel
     launch per round: every leaf is flattened into one f32 buffer on the
-    params' device and ``kernels/server_step`` (CUDA on the card, its plain
-    version on the CPU) does clip-weighted mean + accumulator + update in
-    one pass.
+    params' device, the member gradients into the rows of one pitched
+    stack (:func:`gradient_stack`), and ``kernels/server_step`` (CUDA on
+    the card, its plain version on the CPU) does clip-weighted mean +
+    accumulator + update in one pass.
 
 Gradients may arrive as host numpy trees (from the wire) or as tensors;
 both steps move them to the params' device.  Both consume the same
@@ -32,7 +33,12 @@ from repro_torch.optim import Optimizer
 from repro_torch.tree import as_tensor, tree_flatten, tree_leaves, tree_map
 
 __all__ = ["ServerStep", "TreeServerStep", "FusedServerStep",
-           "member_coeffs", "member_grad_norms", "param_count"]
+           "ROW_ALIGN", "gradient_stack", "member_coeffs",
+           "member_grad_norms", "param_count", "row_pitch"]
+
+#: The gradient stack's row pitch is a multiple of this many f32, so that
+#: every row starts on a 128-byte line and K1 takes its 16-byte path.
+ROW_ALIGN = 32
 
 
 def param_count(params) -> int:
@@ -116,15 +122,63 @@ def _flat32(leaves) -> torch.Tensor:
                       for leaf in leaves])
 
 
+def _fill_rows(buf: torch.Tensor, rows) -> None:
+    """Write member m's leaves, flattened in order, into ``buf[m]``
+    (widened to f32), each straight from where it lies."""
+    for row, leaves in zip(buf, rows):
+        off = 0
+        for leaf in leaves:
+            t = as_tensor(leaf)
+            row[off:off + t.numel()].copy_(t.reshape(-1))
+            off += t.numel()
+
+
+def row_pitch(n: int) -> int:
+    """The gradient stack's row pitch for ``n`` elements a row."""
+    return -(-n // ROW_ALIGN) * ROW_ALIGN
+
+
+def gradient_stack(grads, tdef, n: int, device,
+                   staging: torch.Tensor) -> torch.Tensor:
+    """The round's member gradient trees (structure ``tdef``, ``n``
+    elements each) as an (M, n) f32 view of one (M, ld) buffer on
+    ``device``, ``ld`` being :func:`row_pitch` of ``n``.  Host gradients
+    (numpy from the wire, or CPU tensors) are written leaf by leaf into
+    the first M rows of ``staging``, a host (rows >= M, ld) f32 buffer,
+    which are uploaded at once; any other gradients are copied into the
+    rows of a new buffer on ``device``.  Pad columns are left as they are:
+    the kernel never reads them."""
+    rows = [tdef.flatten_up_to(g) for g in grads]
+    on_host = all(not isinstance(leaf, torch.Tensor)
+                  or leaf.device.type == "cpu"
+                  for leaves in rows for leaf in leaves)
+    if on_host:
+        buf = staging[:len(rows)]
+    else:
+        buf = torch.empty((len(rows), row_pitch(n)), dtype=torch.float32,
+                          device=device)
+    _fill_rows(buf, rows)
+    return buf.to(device)[:, :n]
+
+
 class FusedServerStep(ServerStep):
     """The modified-AdaGrad server step as one fused kernel launch.
 
     Every leaf is flattened and concatenated into a single f32 buffer on
     the params' device (each leaf's dtype is restored on the way out), the
-    M member gradients are stacked and uploaded as one (M, n) buffer, and
-    ``server_step_update`` performs clip-weighted mean + accumulator +
-    parameter update in one pass.  Only the paper's optimizer is fused;
-    constructing this against another optimizer raises."""
+    M member gradients are written into the rows of one pitched (M, n)
+    stack (:func:`gradient_stack`), and ``server_step_update`` performs
+    clip-weighted mean + accumulator + parameter update in one pass.  Only
+    the paper's optimizer is fused; constructing this against another
+    optimizer raises.
+
+    Gradients from the wire are staged in one host buffer kept from round
+    to round, page-locked when the params are on CUDA: on the H100's host
+    a new 9.7 MB buffer each round (the FIG4 net, 4 members) filled about
+    4x slower than a kept one, its pages faulted in at first write, and a
+    page-locked buffer uploads as one DMA (PERF.md).  The upload is
+    synchronous, so a round never overwrites a buffer the card still
+    reads."""
 
     name = "fused"
 
@@ -138,6 +192,18 @@ class FusedServerStep(ServerStep):
         self.opt = opt
         self.lr, self.beta, self.weight_decay = lr, beta, weight_decay
         self.clip_norm = clip_norm
+        self._staging: Optional[torch.Tensor] = None
+
+    def _staging_for(self, members: int, n: int, device) -> torch.Tensor:
+        """The kept host buffer, grown when a round brings more members
+        or a longer row than it holds."""
+        buf = self._staging
+        if (buf is None or buf.shape[0] < members
+                or buf.shape[1] != row_pitch(n)):
+            buf = self._staging = torch.empty(
+                (members, row_pitch(n)), dtype=torch.float32,
+                pin_memory=torch.device(device).type == "cuda")
+        return buf
 
     def step(self, grads, works, params, opt_state):
         coeffs = member_coeffs(grads, works, self.clip_norm)
@@ -146,8 +212,9 @@ class FusedServerStep(ServerStep):
         dev = leaves_p[0].device
         pf = _flat32(leaves_p)
         af = _flat32(tdef.flatten_up_to(opt_state["acc"])).to(dev)
-        gf = torch.stack([_flat32(tdef.flatten_up_to(g))
-                          for g in grads]).to(dev)
+        n = pf.numel()
+        gf = gradient_stack(grads, tdef, n, dev,
+                            self._staging_for(len(grads), n, dev))
         po, ao = server_step_update(
             pf, gf, af, coeffs.to(dev), lr=self.lr, beta=self.beta,
             weight_decay=self.weight_decay)

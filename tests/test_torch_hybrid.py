@@ -8,9 +8,10 @@ does not run on the installed jax (it calls ``pl.load``, ROADMAP.md Queue
 3), with ``tests/test_kernels.py``'s bars: y within ``_tol`` (f32 atol
 3e-5 / rtol 1e-4, bf16 2e-2), hT within 1e-3.  The layers are held to
 their JAX twins on the same numpy inputs and weights in f32 within atol
-2e-4 / rtol 1e-3, the bar of ``tests/test_torch_lm_models.py``.  The
-whole Jamba model (prefill, decode, forward, generate) is in that file's
-``served`` fixture.
+2e-4 / rtol 1e-3, the bar of ``tests/test_torch_lm_models.py``, and the
+Mamba block and MoE FFN also at bf16, at the bars stated beside those
+tests.  The whole Jamba model (prefill, decode, forward, generate) is in
+that file's ``served`` and ``served_bf16`` fixtures.
 """
 import dataclasses
 
@@ -30,6 +31,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.mamba.ops import mamba_scan
 from repro_torch.models import hybrid, mamba, moe
 from repro_torch.tree import as_tensor, tree_as_tensors
+from test_torch_lm_models import _recording_router, _routed_alike
 
 ARCH = "jamba-1.5-large-398b"
 TOL = dict(atol=2e-4, rtol=1e-3)
@@ -264,6 +266,43 @@ def test_mamba_forward_matches_jax_chunked_scan(mamba_block):
         _close(g, w)
 
 
+#: The Mamba block's bf16 bars, at most twice the gaps measured on this
+#: fixture (S 64): y 0.094 at |y| <= 6.9 and 0.023 at |y| <= 3.2 a decode
+#: step later; the f32 SSM state 0.016 at |h| <= 2.6; the bf16 conv tail
+#: equal (one bf16 ulp in [4, 8) is 0.031).
+MAMBA_BF16_TOL = {"y": dict(atol=0.18, rtol=0.0),
+                  "ssm": dict(atol=0.03, rtol=0.0),
+                  "conv": dict(atol=0.031, rtol=0.0)}
+
+
+def test_bf16_mamba_forward_and_decode_step_match_jax(mamba_block):
+    """The Mamba block at bf16 activations (its default dtype in the
+    model), S = 64 and then one decode step from the state each side
+    handed over: y in bf16, the SSM state in f32, the conv tail in bf16."""
+    cfg, p = mamba_block
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 64, cfg.d_model)).astype(np.float32)
+    x1 = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    fwd = jax.jit(lambda p, x, st: JM.mamba_forward(p, cfg, x, state=st))
+    want, want_state = fwd(p, jnp.asarray(x, jnp.bfloat16), None)
+    want1, want_state1 = fwd(p, jnp.asarray(x1, jnp.bfloat16), want_state)
+
+    tp, tcfg = tree_as_tensors(p), get_smoke_config(ARCH)
+    got, state = mamba.mamba_forward(tp, tcfg,
+                                     torch.from_numpy(x).bfloat16())
+    got1, state1 = mamba.mamba_decode_step(
+        tp, tcfg, torch.from_numpy(x1).bfloat16(), state)
+    for g, w, bar in ((got, want, "y"), (got1, want1, "y"),
+                      (state[0], want_state[0], "ssm"),
+                      (state1[0], want_state1[0], "ssm"),
+                      (state[1], want_state[1], "conv"),
+                      (state1[1], want_state1[1], "conv")):
+        assert tuple(g.shape) == tuple(w.shape)
+        assert str(g.dtype).split(".")[1] == str(w.dtype)
+        _close(g, np.asarray(jnp.asarray(w, jnp.float32)),
+               **MAMBA_BF16_TOL[bar])
+
+
 def test_mamba_init_matches_jax_tree(mamba_block):
     cfg, p = mamba_block
     got = mamba.init_mamba(torch.Generator().manual_seed(0),
@@ -310,6 +349,42 @@ def test_apply_moe_matches_jax_local_dispatch(moe_layer, case):
     assert int(loads.sum()) == b * s * cfg.moe.num_experts_per_tok
     assert bool(dropped.any()) == (int(loads.max()) > cap)
     assert bool(dropped.any()) == (case == "drops")
+
+
+#: The MoE FFN's bf16 bar, twice the gap measured on this fixture: 0.0156
+#: (one bf16 ulp at |y| in [1, 2)) at |y| <= 1.7.
+MOE_BF16_TOL = dict(atol=0.031, rtol=0.0)
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_bf16_apply_moe_matches_jax_where_routed_alike(moe_layer, case,
+                                                       monkeypatch):
+    """The MoE FFN at bf16 over the tokens that both packages routed
+    alike (the same top-k experts, the same of them kept under capacity);
+    a token bf16 rounding sent elsewhere is left out, at most 2 here."""
+    cfg, p = moe_layer
+    (b, s), capf = MOE_CASES[case]
+    x = np.random.default_rng(4).normal(
+        size=(b, s, cfg.d_model)).astype(np.float32)
+    jax_routes, port_routes = [], []
+    monkeypatch.setattr(JMoE, "router_topk",
+                        _recording_router(JMoE, jax_routes))
+    want_y, want_aux = jax.block_until_ready(jax.jit(
+        lambda p, x: JMoE._apply_moe_local(p, cfg, x, capacity_factor=capf))(
+            p, jnp.asarray(x, jnp.bfloat16)))
+    monkeypatch.setattr(moe, "router_topk",
+                        _recording_router(moe, port_routes))
+    tcfg = get_smoke_config(ARCH)
+    y, aux = moe.apply_moe(tree_as_tensors(p), tcfg,
+                           torch.from_numpy(x).bfloat16(),
+                           capacity_factor=capf)
+    (jax_idx,), (port_idx,) = jax_routes, port_routes
+    alike = _routed_alike(tcfg, jax_idx, port_idx, capf).reshape(b, s)
+    assert alike.sum() >= alike.size - 2
+    assert y.dtype == torch.bfloat16
+    want = np.asarray(jnp.asarray(want_y, jnp.float32))
+    _close(y.float().numpy()[alike], want[alike], **MOE_BF16_TOL)
+    _close(aux, want_aux, atol=1e-6, rtol=0.0)
 
 
 def test_expert_capacity_is_the_jax_rule():

@@ -17,6 +17,7 @@ from repro.kernels.server_step.ops import \
 from repro_torch.kernels.adagrad.ops import (adagrad_update,
                                              adagrad_update_leaves)
 from repro_torch.kernels.server_step.ops import server_step_update
+from repro_torch.train_fabric.server_step import row_pitch
 from repro_torch.tree import as_tensor
 
 
@@ -41,18 +42,24 @@ def test_server_step_matches_jax_interpret_and_xla(shape, dtype, members,
                                                    wd):
     """K1's plain version against the Pallas kernel (interpret) and the
     XLA oracle.  The port's kernel takes the flat f32 buffer
-    FusedServerStep builds, so bf16 inputs go in widened to f32 (exact)."""
+    FusedServerStep builds, so bf16 inputs go in widened to f32 (exact).
+    The same gradients as a pitched stack (rows 32-element aligned, as
+    FusedServerStep builds it) give the contiguous stack's result bit for
+    bit, so they meet the same bar."""
     rng = np.random.default_rng(7)
     p = rng.normal(size=shape)
     acc = np.abs(rng.normal(size=shape))
     g = rng.normal(size=(members,) + shape)
     coeffs = rng.uniform(0.1, 1.0, size=members).astype(np.float32)
     kw = dict(lr=0.05, beta=1.5, weight_decay=wd)
-    p1, a1 = server_step_update(
-        _torch(p, dtype).float(), _torch(g, dtype).float(),
-        torch.from_numpy(acc.astype(np.float32)), torch.from_numpy(coeffs),
-        **kw)
+    tp, tg = _torch(p, dtype).float(), _torch(g, dtype).float()
+    tacc, tc = torch.from_numpy(acc.astype(np.float32)), \
+        torch.from_numpy(coeffs)
+    p1, a1 = server_step_update(tp, tg, tacc, tc, **kw)
     assert p1.dtype == a1.dtype == torch.float32
+    pp, pa = server_step_update(tp, _pitched(tg, row_pitch(tp.numel())),
+                                tacc, tc, **kw)
+    assert torch.equal(pp, p1) and torch.equal(pa, a1)
     for mode in ("interpret", "xla"):
         p2, a2 = jax_server_step_update(
             _jnp(p, dtype), _jnp(g, dtype), _jnp(acc, "float32"),
@@ -97,13 +104,49 @@ def test_adagrad_mixed_dtypes_match_the_plain_order():
     assert torch.equal(a1, a_want) and torch.equal(p1, p_want)
 
 
+def _pitched(g, ld):
+    """``g`` (M, *shape) copied into the first columns of an (M, ld)
+    buffer whose pad columns hold NaN: a view with rows ``ld`` apart."""
+    m, n = g.shape[0], g[0].numel()
+    buf = torch.full((m, ld), float("nan"))
+    view = buf[:, :n].view(g.shape)
+    view.copy_(g)
+    return view
+
+
+@pytest.mark.parametrize("n", [1, 3, 126, 127, 8192, 8195])
+@pytest.mark.parametrize("members", [1, 2, 4, 9])
+@pytest.mark.parametrize("pitch", ["aligned", "n_plus_3"])
+def test_server_step_on_a_pitched_stack_equals_the_contiguous_call(
+        n, members, pitch):
+    """Rows ``ld`` elements apart (n rounded up to 32, or n + 3) give the
+    contiguous stack's result bit for bit, never read the pad columns
+    (NaN here), and on the CPU count no launch."""
+    rng = np.random.default_rng(n + members)
+    p, acc = (torch.from_numpy(rng.normal(size=n).astype(np.float32))
+              for _ in range(2))
+    acc = acc.abs()
+    g = torch.from_numpy(rng.normal(size=(members, n)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(0.1, 1, members).astype(np.float32))
+    ld = row_pitch(n) if pitch == "aligned" else n + 3
+    gp = _pitched(g, ld)
+    assert gp.stride(1) == 1 and (members == 1 or gp.stride(0) == ld)
+    kw = dict(lr=0.05, beta=1.5, weight_decay=0.01)
+    before = server_step_update.launches
+    got = server_step_update(p, gp, acc, c, **kw)
+    want = server_step_update(p, g, acc, c, **kw)
+    assert server_step_update.launches == before
+    for x, y in zip(got, want):
+        assert torch.equal(x, y) and not torch.isnan(x).any()
+
+
 def _k1_args(n=16, members=2):
     return (torch.zeros(n), torch.zeros(members, n), torch.zeros(n),
             torch.full((members,), 0.5))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "members", "contiguous",
-                                 "coeffs"])
+                                 "coeffs", "row_stride", "pitch_below_n"])
 def test_server_step_wrapper_rejects_what_the_kernel_does_not_take(bad):
     p, g, acc, c = _k1_args()
     if bad == "dtype":
@@ -115,6 +158,10 @@ def test_server_step_wrapper_rejects_what_the_kernel_does_not_take(bad):
         c = torch.zeros(0)
     elif bad == "contiguous":
         g = torch.zeros(16, 2).t()
+    elif bad == "row_stride":           # the last dimension not unit-stride
+        g = torch.zeros(2, 32)[:, ::2]
+    elif bad == "pitch_below_n":        # rows 8 elements apart, 16 long
+        g = torch.zeros(40).as_strided((2, 16), (8, 1))
     else:
         c = torch.full((3,), 0.5)
     with pytest.raises((TypeError, ValueError)):

@@ -4,10 +4,11 @@ on the CPU.
 Weights are the JAX package's own init, carried across as numpy
 (``params_from_numpy``); inputs are numpy arrays from a seed fed to both.
 Attention in the port runs its flash-attention wrapper and the RWKV
-recurrence its WKV wrapper, here on their plain versions.  Everything is in
-f32, and every comparison uses the JAX package's own bar for the attention
-layer (``test_flash_attention_matches_model_attention_layer``): atol 2e-4,
-rtol 1e-3.
+recurrence its WKV wrapper, here on their plain versions.  The f32 cases
+use the JAX package's own bar for the attention layer
+(``test_flash_attention_matches_model_attention_layer``): atol 2e-4, rtol
+1e-3.  The bf16 cases (bf16 is ``build_model``'s default compute dtype in
+both packages) use the bars stated at ``BF16_TOL``.
 """
 import dataclasses
 
@@ -21,6 +22,7 @@ from repro.configs import get_arch_config as jax_arch_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.launch.serve import generate as jax_generate
 from repro.models import layers as JL
+from repro.models import moe as jax_moe
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import count_params_analytic as jax_count_params
 from repro.models.model import lm_loss as jax_lm_loss
@@ -29,6 +31,7 @@ from repro_torch.configs import get_arch_config, get_smoke_config
 from repro_torch.launch.serve import generate
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
+from repro_torch.models import moe as port_moe
 from repro_torch.models.model import (build_model, count_params_analytic,
                                       lm_loss, params_from_numpy)
 from repro_torch.models.moe import dispatch_load
@@ -351,3 +354,205 @@ def test_jamba_cut_served_on_one_card_counts_as_jax():
 def test_families_of_later_slices_are_refused(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(get_smoke_config(arch))
+
+
+# --- bf16, the default compute dtype -----------------------------------------
+
+#: The bf16 bars, at most twice the largest gap between the two packages
+#: measured on these smoke models (B 2, S 12, the JAX init, seed 0).  Both
+#: packages round every product and the residual stream to bf16, at
+#: different places, and one bf16 ulp is 0.0156 at |x| in [2, 4) and 0.031
+#: in [4, 8): prefill logits and the KV caches were within 0.047 and the
+#: forward's logits within 0.070 (Jamba, over the tokens routed alike) at
+#: |x| <= 4.5, so 0.1 absolute (the tests require |logits| <= 5, where
+#: that is 2%); rwkv's f32 WKV state was within 0.086 at |s| <= 13.4 and
+#: Jamba's f32 SSM state within 0.0023 at |h| <= 0.24.
+BF16_TOL = dict(atol=0.1, rtol=0.0)
+BF16_STATE_TOL = {"wkv": dict(atol=0.17, rtol=0.0),
+                  "ssm": dict(atol=4.5e-3, rtol=0.0)}
+#: the planted fault: the final norm's scale times 1.05.  A 1% scale of
+#: any one weight moved these logits by at most 0.086, no more than bf16
+#: rounding does, so it cannot be told from it at this bar.
+FAULT_SCALE = 1.05
+
+
+def _recording_router(module, calls):
+    """``module.router_topk`` wrapped to append each call's top-k indices
+    (as numpy) to ``calls``; under ``jax.jit`` through a debug callback."""
+    routed = module.router_topk
+
+    def recorded(logits, k):
+        probs, weights, idx = routed(logits, k)
+        if isinstance(idx, torch.Tensor):
+            calls.append(idx.numpy().copy())
+        else:
+            jax.debug.callback(lambda i: calls.append(np.asarray(i)), idx)
+        return probs, weights, idx
+    return recorded
+
+
+def _routed_alike(cfg, jax_idx, port_idx, capacity_factor=None):
+    """(n,) bool over the tokens of one MoE call: True where both packages
+    chose the same top-k experts and kept the same of them under the
+    expert capacity (each package's ranks, the port's rule)."""
+    n, k = jax_idx.shape
+    cap = port_moe.expert_capacity(n, cfg.moe, capacity_factor)
+    kept = []
+    for idx in (jax_idx, port_idx):
+        e_flat = torch.from_numpy(np.asarray(idx, np.int64).reshape(-1))
+        pos = port_moe._positions_within_expert(e_flat, cfg.moe.num_experts)
+        keep = (pos < cap).numpy().reshape(n, k)
+        kept.append([frozenset(e for e, kp in zip(row, ks) if kp)
+                     for row, ks in zip(idx, keep)])
+    same_set = (np.sort(jax_idx, -1) == np.sort(port_idx, -1)).all(-1)
+    same_kept = np.array([a == b for a, b in zip(*kept)])
+    return same_set & same_kept
+
+
+def _alike_tokens(cfg, jax_calls, port_calls, shape):
+    """(B, S) bool: the tokens that every MoE layer routed alike in both
+    packages (all True for a model without MoE)."""
+    alike = np.ones(shape, bool)
+    assert len(jax_calls) == len(port_calls)
+    for ji, pi in zip(jax_calls, port_calls):
+        alike &= _routed_alike(cfg, ji, pi).reshape(shape)
+    return alike
+
+
+@pytest.fixture(scope="module",
+                params=["qwen3-4b", "rwkv6-1.6b", "jamba-1.5-large-398b"])
+def served_bf16(request):
+    """One smoke model at bf16 in both packages, on the JAX init: prefill
+    logits and cache and ``forward_features``, with every MoE call's
+    top-k indices recorded on both sides."""
+    cfg = jax_smoke_config(request.param)
+    api = jax_build_model(cfg, compute_dtype=jnp.bfloat16, remat=False)
+    params = _init(api.init)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    port_cfg = get_smoke_config(request.param)
+    port_api = build_model(port_cfg, compute_dtype=torch.bfloat16)
+    port_params = params_from_numpy(port_cfg, params, device="cpu")
+    out = dict(cfg=port_cfg, api=port_api, params=port_params,
+               prompts=prompts)
+    with pytest.MonkeyPatch.context() as mp:
+        for name, module, call in (
+                ("prefill", None, lambda: jax.jit(lambda p, t: api.prefill(
+                    p, {"tokens": t}, cache_len=S + GEN))(
+                        params, jnp.asarray(prompts))),
+                ("features", None, lambda: jax.jit(api.forward_features)(
+                    params, {"tokens": jnp.asarray(prompts)}))):
+            calls = []
+            mp.setattr(jax_moe, "router_topk",
+                       _recording_router(jax_moe, calls))
+            result = jax.block_until_ready(call())
+            out[f"jax_{name}"] = jax.tree_util.tree_map(np.asarray, result)
+            out[f"jax_{name}_routes"] = calls
+            mp.undo()
+    return out
+
+
+def _port_routed(monkeypatch, fn):
+    calls = []
+    monkeypatch.setattr(port_moe, "router_topk",
+                        _recording_router(port_moe, calls))
+    result = fn()
+    monkeypatch.undo()
+    return result, calls
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32), np.float32)
+
+
+def _port_prefill(served, params=None):
+    return served["api"].prefill(
+        params if params is not None else served["params"],
+        {"tokens": _tokens(served["prompts"])}, cache_len=S + GEN)
+
+
+def test_bf16_prefill_matches_jax(served_bf16, monkeypatch):
+    """Prefill logits and every cache entry at bf16 against the JAX
+    package, at the bars of ``BF16_TOL``: logits (at the positions whose
+    token every MoE layer routed alike), KV caches, the token shifts and
+    conv tails in bf16, rwkv's WKV and Jamba's SSM states in f32."""
+    (logits, cache), routes = _port_routed(
+        monkeypatch, lambda: _port_prefill(served_bf16))
+    want_logits, want_cache = served_bf16["jax_prefill"]
+    assert logits.dtype == torch.bfloat16
+    assert np.abs(_f32(want_logits)).max() <= 5.0
+    alike = _alike_tokens(served_bf16["cfg"], served_bf16["jax_prefill_"
+                                                          "routes"],
+                          routes, served_bf16["prompts"].shape)
+    last = alike[:, -logits.shape[1]:]
+    assert last.all()               # no flipped route reaches these logits
+    _close(_f32(logits), _f32(want_logits), **BF16_TOL)
+    assert set(cache) == set(want_cache)
+    for key, got in cache.items():
+        want = want_cache[key]
+        assert str(got.dtype).split(".")[1] == str(want.dtype), key
+        if got.dtype == torch.int32:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            _close(_f32(got), _f32(want),
+                   **BF16_STATE_TOL.get(key, BF16_TOL))
+
+
+def test_bf16_forward_features_matches_jax(served_bf16, monkeypatch):
+    """Logits and features of ``forward_features`` at bf16, over every
+    token that each MoE layer routed alike in both packages (a token whose
+    top-k set or kept experts differ takes other experts' outputs: bf16
+    rounding flips near-ties of the router)."""
+    api, params = served_bf16["api"], served_bf16["params"]
+    (logits, aux, feats), routes = _port_routed(
+        monkeypatch, lambda: api.forward_features(
+            params, {"tokens": _tokens(served_bf16["prompts"])}))
+    want_logits, want_aux, want_feats = served_bf16["jax_features"]
+    alike = _alike_tokens(served_bf16["cfg"],
+                          served_bf16["jax_features_routes"], routes,
+                          served_bf16["prompts"].shape)
+    assert alike.sum() >= alike.size - 2
+    assert np.abs(_f32(want_logits)).max() <= 5.0
+    _close(_f32(logits)[alike], _f32(want_logits)[alike], **BF16_TOL)
+    _close(_f32(feats)[alike], _f32(want_feats)[alike], **BF16_TOL)
+    _close(aux, want_aux, atol=1e-3, rtol=0.0)
+
+
+def test_bf16_greedy_argmax_matches_jax_where_decisive(served_bf16,
+                                                       monkeypatch):
+    """Wherever JAX's top two logits lie further apart than the bar, the
+    port picks the same token: the prefill's and every alike-routed
+    position of ``forward_features``."""
+    vocab = served_bf16["cfg"].vocab_size
+    api, params = served_bf16["api"], served_bf16["params"]
+    (pre, _), _ = _port_routed(monkeypatch, lambda: _port_prefill(
+        served_bf16))
+    (feat, _, _), routes = _port_routed(
+        monkeypatch, lambda: api.forward_features(
+            params, {"tokens": _tokens(served_bf16["prompts"])}))
+    alike = _alike_tokens(served_bf16["cfg"],
+                          served_bf16["jax_features_routes"], routes,
+                          served_bf16["prompts"].shape)
+    for got, want, rows in (
+            (pre, served_bf16["jax_prefill"][0],
+             np.ones(pre.shape[:2], bool)),
+            (feat, served_bf16["jax_features"][0], alike)):
+        got, want = _f32(got)[..., :vocab], _f32(want)[..., :vocab]
+        top2 = np.sort(want, -1)[..., -2:]
+        decisive = (top2[..., 1] - top2[..., 0] > BF16_TOL["atol"]) & rows
+        assert decisive.any()
+        np.testing.assert_array_equal(got.argmax(-1)[decisive],
+                                      want.argmax(-1)[decisive])
+
+
+def test_bf16_planted_fault_exceeds_the_bar(served_bf16):
+    """The bar can fail: the final norm's scale times ``FAULT_SCALE``
+    moves the prefill logits past ``BF16_TOL`` from the JAX package's."""
+    params = dict(served_bf16["params"])
+    norm = dict(params["final_norm"])
+    norm["scale"] = norm["scale"] * FAULT_SCALE
+    params["final_norm"] = norm
+    logits, _ = _port_prefill(served_bf16, params)
+    gap = np.abs(_f32(logits) - _f32(served_bf16["jax_prefill"][0])).max()
+    assert gap > BF16_TOL["atol"]

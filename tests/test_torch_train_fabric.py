@@ -97,6 +97,82 @@ def test_fused_server_step_matches_jax(dtype, clip):
                                    np.asarray(a, np.float32), **tol)
 
 
+def _tail_inputs(tail, grads_as):
+    """``_round_inputs`` with one more leaf of ``tail`` elements, so the
+    flat buffer's n mod 4 is ``tail``; gradients as numpy or tensors."""
+    params, grads, works = _round_inputs("float32")
+    rng = np.random.default_rng(tail)
+    params = dict(params, odd=rng.normal(size=tail).astype(np.float32))
+    grads = [dict(g, odd=rng.normal(size=tail).astype(np.float32))
+             for g in grads]
+    if grads_as == "tensor":
+        grads = [tree_map(as_tensor, g) for g in grads]
+    return params, grads, works
+
+
+@pytest.mark.parametrize("tail", [1, 2, 3])
+@pytest.mark.parametrize("grads_as", ["numpy", "tensor"])
+def test_fused_server_step_stacks_its_gradients_at_a_pitch_of_32(
+        monkeypatch, tail, grads_as):
+    """The (M, n) stack that reaches the kernel is a view of one buffer
+    whose rows lie a multiple of 32 elements apart (n mod 4 = ``tail``, so
+    a contiguous stack would put rows at odd offsets).  The step stays bit
+    for bit the tree step's and within the f32 bar of the JAX package's
+    FusedServerStep."""
+    from repro_torch.train_fabric import server_step as port_step
+    params, grads, works = _tail_inputs(tail, grads_as)
+    stacks = []
+    fused_update = port_step.server_step_update
+
+    def spy(p, g_stack, *args, **kwargs):
+        stacks.append(g_stack)
+        return fused_update(p, g_stack, *args, **kwargs)
+
+    monkeypatch.setattr(port_step, "server_step_update", spy)
+    opt = adagrad(0.05, beta=1.5)
+    tp = tree_map(as_tensor, params)
+    got_p, got_s = FusedServerStep(opt, lr=0.05, beta=1.5).step(
+        grads, works, tp, opt.init(tp))
+    (g_stack,) = stacks
+    n = param_count(params)
+    assert n % 4 == tail and g_stack.shape == (len(grads), n)
+    assert g_stack.stride(1) == 1 and g_stack.stride(0) % 32 == 0
+    assert n <= g_stack.stride(0) < n + 32
+    tree_p, tree_s = TreeServerStep(opt).step(grads, works, tp,
+                                              opt.init(tp))
+    for a, b in zip(tree_leaves((tree_p, tree_s["acc"])),
+                    tree_leaves((got_p, got_s["acc"]))):
+        assert _same_bits(a, b)
+    jopt_ = jopt.adagrad(0.05, beta=1.5)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    want_p, want_s = jfab.FusedServerStep(jopt_, lr=0.05, beta=1.5).step(
+        [tree_map(to_numpy, g) for g in grads], works, jp, jopt_.init(jp))
+    for a, b in zip(jax.tree_util.tree_leaves((want_p, want_s["acc"])),
+                    tree_leaves((got_p, got_s["acc"]))):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **F32)
+
+
+def test_fused_server_step_keeps_one_staging_buffer_across_rounds():
+    """Rounds of 4, then 3, then 4 members reuse the host buffer the first
+    round made, and each gives what a fresh FusedServerStep gives, bit for
+    bit: nothing of an earlier round leaks into a later one."""
+    params, grads, works = _tail_inputs(3, "numpy")
+    opt = adagrad(0.05, beta=1.5)
+    tp = tree_map(as_tensor, params)
+    state = opt.init(tp)
+    kept = FusedServerStep(opt, lr=0.05, beta=1.5)
+    buffers = []
+    for m in (4, 3, 4):
+        got = kept.step(grads[:m], works[:m], tp, state)
+        buffers.append(kept._staging.data_ptr())
+        want = FusedServerStep(opt, lr=0.05, beta=1.5).step(
+            grads[:m], works[:m], tp, state)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert _same_bits(a, b)
+        grads = grads[1:] + grads[:1]           # other gradients each round
+    assert buffers[0] == buffers[1] == buffers[2]
+
+
 @pytest.mark.parametrize("clip", [None, 1.0, 0.01])
 def test_member_coeffs_match_jax(clip):
     _, grads, works = _round_inputs("float32")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's modified AdaGrad (K2), flash attention (K3), Mamba scan
-(K4) and WKV (K5) kernels against other builds of the same C interface, in
-turns, on one CUDA card.
+"""Time the port's fused server step (K1), modified AdaGrad (K2), flash
+attention (K3), Mamba scan (K4) and WKV (K5) kernels against other builds
+of the same C interface, in turns, on one CUDA card.
 
     python3 tools/torch_kernel_ab.py \\
+        --cand k1:parent:OLD_SERVER_STEP.cu \\
         --cand k2:parent:OLD_ADAGRAD.cu \\
         --cand k3:parent:OLD_FLASH_ATTENTION.cu \\
         --cand k4:parent:OLD_MAMBA.cu \\
@@ -13,15 +14,20 @@ turns, on one CUDA card.
 A candidate is ``kernel:label:source[:flag...]``.  It is compiled with its
 kernel's flags from ``repro_torch.kernels.build`` plus its own into
 ``build/kernel_ab/``, loaded with ctypes, and held to the plain version on
-the timed inputs (K3 within ``chip_smoke.TOL_F32``, K2, K4 and K5
+the timed inputs (K3 within ``chip_smoke.TOL_F32``, K1, K2, K4 and K5
 bitwise), unless its label starts with ``diag`` (a diagnostic build that
 leaves work out).  Then, at each main-path shape, the candidate and the
 kernel of the tree (through its wrapper) are timed by
 ``chip_smoke.ColdTimer`` in the order candidate, tree, tree, candidate;
-each gets the mean of its two medians.  K2's shapes are the FIG2 step
-(8 leaves) and one f32 leaf of 1,000,003; a K2 candidate with the older
-C entry (``repro_adagrad_update``, one leaf a launch) is called once a
-leaf, and K2 is set beside one launch of a 1-element ``add_``.  At the
+each gets the mean of its two medians.  K1's shapes are the fabric's
+FIG4 step (n 609,258) at M 4 and M 8 and n 16,777,219 at M 4, each on a
+contiguous (M, n) stack and on a pitched one (rows padded to 32 f32, as
+``FusedServerStep`` builds it); a K1 candidate whose C entry takes no row
+pitch (``repro_server_step``) runs on the contiguous stack in both rows.
+K2's shapes are the FIG2 step (8 leaves) and one f32 leaf of 1,000,003; a
+K2 candidate with the older C entry (``repro_adagrad_update``, one leaf a
+launch) is called once a leaf.  K1 and K2 are set beside one launch of a
+1-element ``add_``.  At the
 decode shape K4 and K5 are also set beside one copy of their state (the
 bytes the step must move).  The last line is one JSON object with every
 time, beside the card's ``nvidia-smi --query-gpu=name,power.limit`` line.
@@ -56,10 +62,15 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
+from repro_torch.kernels.server_step import ops as server_step_ops  # noqa: E402
+from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "kernel_ab")
 #: kernel -> (directory in kernels/, C entry, the main path's shapes)
 KERNELS = {
+    "k1": ("server_step", None,
+           {"fig4_m4": (609_258, 4), "fig4_m8": (609_258, 8),
+            "n16777219_m4": (16_777_219, 4)}),
     "k2": ("adagrad", None,
            {"fig2_step": None, "n1000003": (1_000_003,)}),
     "k3": ("flash_attention", "repro_flash_attention",
@@ -72,6 +83,8 @@ KERNELS = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: K2's learning rate and beta (the quickstart's)
 K2_KW = dict(lr=0.02, beta=1.0)
+#: K1's (the fabric's)
+K1_KW = dict(lr=0.05, beta=1.0)
 
 
 def compile_candidate(kernel: str, label: str, source: str, flags) -> str:
@@ -129,6 +142,48 @@ def k4_inputs(gen, b, t, di, ds):
     return (0.001 + 0.099 * u(b, t, di), n(b, t, di), n(b, t, ds),
             n(b, t, ds), -(0.5 + 3.5 * u(di, ds)),
             (1.0 if t == 1 else 0.1) * n(b, di, ds))
+
+
+def k1_inputs(gen, n, members):
+    """p, acc, a contiguous (M, n) gradient stack, the same gradients as
+    a pitched stack, and the coefficients."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    g = rand(members, n)
+    ld = -(-n // 32) * 32
+    pitched = torch.empty(members, ld, device="cuda")[:, :n]
+    pitched.copy_(g)
+    return (rand(n), rand(n).abs(), g, pitched,
+            torch.full((members,), 1.0 / members, device="cuda"))
+
+
+def k1_caller(lib, p, acc, g, coeffs):
+    """One launch on the stack ``g``: through the pitched entry, or, for
+    an older build, the entry that takes a contiguous stack."""
+    p_out, acc_out = torch.empty_like(p), torch.empty_like(acc)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (p.data_ptr(), g.data_ptr(), acc.data_ptr(), coeffs.data_ptr(),
+            p_out.data_ptr(), acc_out.data_ptr())
+    n, members = p.numel(), g.shape[0]
+    lr, beta = K1_KW["lr"], K1_KW["beta"]
+    if hasattr(lib, "repro_server_step_pitched"):
+        fn = lib.repro_server_step_pitched
+        fn.argtypes = server_step_ops._ARGTYPES + [_P]
+        args = (*ptrs, n, g.stride(0), members, lr, beta, 0, 0.0, stream)
+    else:
+        if not g.is_contiguous():
+            raise ValueError("the older K1 entry takes a contiguous stack")
+        fn = lib.repro_server_step
+        fn.argtypes = [_P] * 6 + [ctypes.c_longlong, _I, _F, _F, _I, _F, _P]
+        args = (*ptrs, n, members, lr, beta, 0, 0.0, stream)
+    fn.restype = _I
+
+    def call():
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"launch failed: CUDA error {code}")
+        return p_out, acc_out
+    return call
 
 
 def k2_caller(lib, leaves):
@@ -221,9 +276,28 @@ def k5_caller(lib, r, k, v, w, u, s0):
 
 
 def compare(kernel, lib, shape, gen, checked=True):
-    """(candidate's call, the tree's call, the bound, the state it carries
-    or None) at ``shape``, after holding the candidate's output to the
-    plain version (unless not ``checked``)."""
+    """([(row, candidate's call, the tree's call), ...], the bound, the
+    state it carries or None) at ``shape``, after holding the candidate's
+    output to the plain version (unless not ``checked``).  Every kernel
+    has one row, "", but K1, which has one for each stack."""
+    if kernel == "k1":
+        p, acc, g, pitched, c = k1_inputs(gen, *shape)
+        want = server_step_ref(p, g, acc, c, **K1_KW)
+        rows = []
+        for row, stack in (("contiguous", g), ("pitched", pitched)):
+            cand = (k1_caller(lib, p, acc, stack, c)
+                    if hasattr(lib, "repro_server_step_pitched")
+                    else k1_caller(lib, p, acc, g, c))
+            got = cand()
+            torch.cuda.synchronize()
+            cs.check(not checked or all(
+                torch.equal(x, y) for x, y in zip(got, want)),
+                f"k1 candidate bitwise equal to its plain version on the "
+                f"{row} stack")
+            rows.append((row, cand,
+                         lambda s=stack: server_step_ops.server_step_update(
+                             p, s, acc, c, **K1_KW)))
+        return rows, cs._k1_bound(p.numel(), g.shape[0])[0], None
     if kernel == "k2":
         leaves = k2_inputs(gen, shape)
         cand = k2_caller(lib, leaves)
@@ -234,8 +308,8 @@ def compare(kernel, lib, shape, gen, checked=True):
             torch.equal(x, y) for leaf, out in zip(leaves, got)
             for x, y in zip(out, adagrad_ref(*leaf, **K2_KW))),
             "k2 candidate bitwise equal to its plain version")
-        return (cand, lambda: adagrad_ops.adagrad_update_leaves(
-            ps, gs, accs, **K2_KW), cs._k2_bound(ps, gs)[0], None)
+        return ([("", cand, lambda: adagrad_ops.adagrad_update_leaves(
+            ps, gs, accs, **K2_KW))], cs._k2_bound(ps, gs)[0], None)
     if kernel == "k3":
         q, k, v = k3_inputs(gen, *shape)
         cand, tree = k3_caller(lib, q, k, v), lambda: flash_attention(q, k, v)
@@ -246,7 +320,7 @@ def compare(kernel, lib, shape, gen, checked=True):
         cs.check(not checked or cs._within(got, want, **cs.TOL_F32),
                  f"k3 candidate within {cs.TOL_F32}: max err "
                  f"{cs._max_err(got, want)}")
-        return cand, tree, cs._k3_bound(q, k)[0], None
+        return [("", cand, tree)], cs._k3_bound(q, k)[0], None
     if kernel == "k4":
         ins = k4_inputs(gen, *shape)
         cand, tree, plain = k4_caller(lib, *ins), mamba_scan, mamba_scan_ref
@@ -259,14 +333,14 @@ def compare(kernel, lib, shape, gen, checked=True):
     torch.cuda.synchronize()
     cs.check(not checked or all(torch.equal(x, y) for x, y in zip(got, want)),
              f"{kernel} candidate bitwise equal to its plain version")
-    return cand, lambda: tree(*ins), bound, state
+    return [("", cand, lambda: tree(*ins))], bound, state
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cand", action="append", required=True,
-                    help="kernel:label:source[:flag...], kernel k2, k3, "
-                         "k4 or k5")
+                    help="kernel:label:source[:flag...], kernel k1, k2, "
+                         "k3, k4 or k5")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -285,31 +359,37 @@ def main() -> int:
         kernel, label, source, *flags = spec.split(":")
         lib = ctypes.CDLL(compile_candidate(kernel, label, source, flags))
         for shape_name, shape in KERNELS[kernel][2].items():
-            cand, tree, bound, state = compare(
-                kernel, lib, shape, gen,
-                checked=not label.startswith("diag"))
-            c1, t1, t2, c2 = (timer(fn) for fn in (cand, tree, tree, cand))
-            row = {"candidate_ms": (c1 + c2) / 2, "tree_ms": (t1 + t2) / 2,
-                   "turns_ms": [c1, t1, t2, c2], "bound_ms": bound}
-            if state is not None and shape[1] == 1:
-                # a yardstick for the decode step: one copy of the state,
-                # the bytes the step must move (h0 or s0 in, hT or sT out)
-                copy = torch.empty_like(state)
-                row["state_copy_ms"] = timer(lambda: copy.copy_(state))
-            if kernel == "k2":
-                # a yardstick for a small step: one launch that does
-                # nearly nothing
-                one = torch.zeros(1, device="cuda")
-                row["launch_floor_ms"] = timer(lambda: one.add_(1.0))
-            results[f"{kernel}:{label}:{shape_name}"] = row
-            print(f"[ab] {kernel} {label} {shape_name} shape={shape} "
-                  f"candidate_ms={row['candidate_ms']:.6f} "
-                  f"tree_ms={row['tree_ms']:.6f} bound_ms={bound:.6f} "
-                  f"state_copy_ms={row.get('state_copy_ms')} "
-                  f"launch_floor_ms={row.get('launch_floor_ms')} "
-                  f"turns={','.join(f'{x:.6f}' for x in row['turns_ms'])}",
-                  flush=True)
-            del cand, tree
+            rows, bound, state = compare(kernel, lib, shape, gen,
+                                         checked=not label.startswith("diag"))
+            for row_name, cand, tree in rows:
+                c1, t1, t2, c2 = (timer(fn) for fn in (cand, tree, tree,
+                                                       cand))
+                row = {"candidate_ms": (c1 + c2) / 2,
+                       "tree_ms": (t1 + t2) / 2,
+                       "turns_ms": [c1, t1, t2, c2], "bound_ms": bound}
+                if state is not None and shape[1] == 1:
+                    # a yardstick for the decode step: one copy of the
+                    # state, the bytes the step must move (h0 or s0 in,
+                    # hT or sT out)
+                    copy = torch.empty_like(state)
+                    row["state_copy_ms"] = timer(lambda: copy.copy_(state))
+                if kernel in ("k1", "k2"):
+                    # a yardstick for a small step: one launch that does
+                    # nearly nothing
+                    one = torch.zeros(1, device="cuda")
+                    row["launch_floor_ms"] = timer(lambda: one.add_(1.0))
+                key = ":".join(x for x in (kernel, label, shape_name,
+                                           row_name) if x)
+                results[key] = row
+                print(f"[ab] {kernel} {label} {shape_name} {row_name} "
+                      f"shape={shape} "
+                      f"candidate_ms={row['candidate_ms']:.6f} "
+                      f"tree_ms={row['tree_ms']:.6f} bound_ms={bound:.6f} "
+                      f"state_copy_ms={row.get('state_copy_ms')} "
+                      f"launch_floor_ms={row.get('launch_floor_ms')} "
+                      f"turns={','.join(f'{x:.6f}' for x in row['turns_ms'])}",
+                      flush=True)
+            del rows
     print(json.dumps({"card": smi, "ab": results}), flush=True)
     return 0
 
