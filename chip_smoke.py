@@ -59,7 +59,25 @@ Phases, one line each:
      each decode step, one K3 launch; the MoE's dropped assignments are
      counted in both passes (a batch row that a drop touched is left out
      of the comparison); its planted fault drops the SSM state the prefill
-     hands over.
+     hands over;
+  9. training qwen1.5-0.5b at every published width and depth (untied for
+     the split strategies, f32, random weights from a seed) through
+     ``repro_torch.launch.train.train_loop`` at lr 3 (``TRAIN_LR``):
+     a. 20 ``split_concurrent`` steps at batch 8, sequence 512, with K2
+     launched twice a step (the backbone's tree and the head's), its first
+     and last launch re-run through the plain version bitwise, the step-0
+     head and K = 4 stale-head rules held bitwise, the loss falling, and no
+     call of K3, K4 or K5; b. one ``dp_full`` and one ``split_sequential``
+     step from the same weights and batch, equal within 1e-6, then each
+     timed over 6 steps; c. 3 ``split_concurrent`` steps at every width
+     with depth cut to 2, on the card and on the host CPU from the same
+     weights, every loss and state leaf within atol 2e-4 / rtol 1e-3 and
+     every update and accumulator within 1e-3 of its scale, and a planted
+     fault (the head trained on the current step's features) that must fail
+     that check; d. step times, tokens/s, peak memory, and one traced step
+     split into matrix products, K2 and the rest, for the clients' half
+     and the server's (split at a mark kernel launched where the server's
+     half starts).
 
 The launch counts of each kernel are set to 0 just before the path that
 runs it and read just after.  The line before the last is one JSON object
@@ -1147,6 +1165,16 @@ REPO_KERNELS = ("server_step_kernel", "adagrad_kernel", "flash_kernel",
 MATMUL_MARKS = ("gemm", "gemv", "xmma", "cutlass")
 
 
+def _part(kernel: str) -> str:
+    """Which part of a device-time split a kernel (its traced name) is:
+    the repository's kernels, matrix products, or the rest."""
+    if any(k in kernel for k in REPO_KERNELS):
+        return "repo_kernels"
+    if any(m in kernel.lower() for m in MATMUL_MARKS):
+        return "matmul"
+    return "other"
+
+
 def _device_split(fn) -> dict:
     """The device time (ms) of the kernels of one call of ``fn``, from a
     ``torch.profiler`` trace of it (one call first, untraced, so the trace
@@ -1166,10 +1194,7 @@ def _device_split(fn) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
-        part = ("repo_kernels" if any(k in e.key for k in REPO_KERNELS)
-                else "matmul" if any(m in e.key.lower() for m in MATMUL_MARKS)
-                else "other")
-        split[part] += e.self_device_time_total / 1e3
+        split[_part(e.key)] += e.self_device_time_total / 1e3
     check(any(split.values()), "the profiler traced the call's kernels")
     return dict(split, all=sum(split.values()))
 
@@ -1428,6 +1453,453 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
     return {name: counts[name] for name in on_path}
 
 
+# --- 9. training qwen1.5-0.5b with the paper's split strategies --------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+#: phase 9's learning rate (β 1 as the paper's, K 4 and the rest
+#: RunConfig's defaults).  With β inside the square root and gradients of
+#: ~1e-3 a step moves each parameter by ~lr·g: at RunConfig's 1e-2, and up
+#: to 1, 20 steps lowered the loss by no more than the batches' noise
+#: (~0.01-0.03); 3 lowered it by 0.22, 10 by 0.43, and 30 diverged
+#: (PERF.md)
+TRAIN_LR = 3.0
+#: a: batch, sequence, split_concurrent steps; the first TRAIN_WARM steps
+#: are left out of the step-time medians
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 512, 20, 2
+#: b: dp_full and split_sequential steps, each
+TRAIN_TIMED_STEPS = 6
+#: c: depth cut to 2 layers, batch 2, sequence 64, 3 steps, card vs CPU
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, TRAIN_CUT_STEPS = (
+    2, 2, 64, 3)
+#: the f32 model bar of ROADMAP.md's conventions, card against host CPU
+TRAIN_TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+@contextlib.contextmanager
+def _patched(owner, attr: str, wrap):
+    """Within the block, ``owner.attr`` is ``wrap(original)``."""
+    original = getattr(owner, attr)
+    setattr(owner, attr, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(owner, attr, original)
+
+
+def _trees_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _state_gap(got, want) -> tuple:
+    """(every leaf of every ``TrainState`` field within ``TRAIN_TOL``, the
+    largest absolute gap), leaves compared on the host."""
+    from repro_torch.train_fabric import state_to_tree
+
+    gl, wl = (tree_leaves(state_to_tree(s)) for s in (got, want))
+    ok, gap = len(gl) == len(wl), 0.0
+    for x, y in zip(gl, wl):
+        x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False, float("inf")
+        ok = ok and _within(x, y, **TRAIN_TOL)
+        gap = max(gap, _max_err(x, y))
+    return ok, gap
+
+
+#: a kernel of PyTorch's own (``torch.cuda._sleep``'s) that marks a point
+#: of the stream in a trace
+MARK_KERNEL = "spin_kernel"
+
+
+def _marked(server_head_update):
+    """``server_head_update`` that first launches the mark kernel: on the
+    one stream every kernel of the step before the mark is the clients'
+    half, every one after it the server's."""
+    def marked(*args, **kwargs):
+        torch.cuda._sleep(1)
+        return server_head_update(*args, **kwargs)
+    return marked
+
+
+def _kernel_label(name: str) -> str:
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", " "):
+        name = name.replace(noise, "")
+    return re.sub(r"[^A-Za-z0-9_:<>,]", "", name)[:100]
+
+
+def _traced_halves(fn) -> tuple:
+    """One call of ``fn`` traced (after one untraced): the device ms of its
+    kernels before and after the first mark kernel (``_marked``), each
+    split into the repository's kernels, matrix products and the rest,
+    the mark left out; and the ms of each kernel of the rest, by label."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+    marks = [e for e in kernels if MARK_KERNEL in e.name]
+    check(len(marks) == 1, f"one mark kernel in the traced step, found "
+          f"{len(marks)} among {len(kernels)} kernels")
+    halves = {half: {"repo_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+              for half in ("client", "server")}
+    others: dict = {}
+    for e in kernels:
+        if e is marks[0]:
+            continue
+        half = ("server" if e.time_range.start >= marks[0].time_range.start
+                else "client")
+        part, ms = _part(e.name), e.time_range.elapsed_us() / 1e3
+        halves[half][part] += ms
+        if part == "other":
+            label = _kernel_label(e.name)
+            others[label] = others.get(label, 0.0) + ms
+    check(all(sum(h.values()) > 0 for h in halves.values()),
+          f"the profiler traced both halves of the step: {halves}")
+    return halves, others
+
+
+def _plain_adagrad_update(counter, ps, gs, accs, lr, beta, weight_decay):
+    """The plain version of K2's launch (``adagrad.ops._update``, which the
+    wrapper calls positionally): ``adagrad_ref`` leaf by leaf."""
+    outs = [adagrad_ref(p, g, a, lr=lr, beta=beta, weight_decay=weight_decay)
+            for p, g, a in zip(ps, gs, accs)]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def _k2_rerun(call, which: str) -> int:
+    """A recorded K2 launch against its plain version on the same tensors,
+    bitwise; returns its leaves."""
+    args, kwargs, (p_out, acc_out) = call
+    want_p, want_acc = _plain_adagrad_update(*args, **kwargs)
+    torch.cuda.synchronize()
+    for got, want in zip(p_out + acc_out, want_p + want_acc):
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"train: the {which} K2 launch bitwise equal to its plain "
+              f"version: max err {_max_err(got, want)}")
+    return len(args[1])
+
+
+def _cuda_batches(rng, n: int, batch: int, seq: int, vocab: int,
+                  device="cuda") -> list:
+    from repro_torch.data import make_lm_batch
+    return [{k: torch.from_numpy(v).to(device) for k, v in
+             make_lm_batch(rng, batch, seq, vocab).items()}
+            for _ in range(n)]
+
+
+def _current_features_fault(api, step_fn):
+    """A planted fault: the server trains the head on the CURRENT step's
+    features (the client's forward through the stale head), not on the
+    previous step's."""
+    from repro_torch.core.split_parallel import merge_params
+
+    def step(state, batch):
+        with torch.no_grad():
+            _, _, feats = api.forward_features(
+                merge_params(state.params, state.head_stale), batch,
+                compute_logits=False, differentiable=True)
+        return step_fn(dataclasses.replace(
+            state, prev_features=feats, prev_labels=batch["labels"],
+            prev_mask=batch["mask"]), batch)
+    return step
+
+
+def _split_concurrent_run(api, run, params, batches, fault=False) -> tuple:
+    """``split_concurrent`` steps from ``params`` on their device over
+    ``batches``: (per-step losses, (initial state, final state))."""
+    from repro_torch.core.split_parallel import (init_prev_features,
+                                                 make_train_step)
+    from repro_torch.optim import get_optimizer
+
+    opt = get_optimizer("adagrad", run.learning_rate,
+                        adagrad_beta=run.adagrad_beta,
+                        weight_decay=run.weight_decay, use_kernel=True)
+    init, step = make_train_step(api, opt, strategy="split_concurrent",
+                                 head_sync_period=run.head_sync_period)
+    if fault:
+        step = _current_features_fault(api, step)
+    state = first = init_prev_features(init(params=params), api, batches[0],
+                                       dtype=torch.float32)
+    losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(metrics["loss"])
+    return torch.stack(losses), (first, state)
+
+
+def _update_gap(got, want) -> tuple:
+    """``got``, ``want``: (initial, final) states.  (Each trained leaf's
+    change since the initial state, and each accumulator, within 1e-3 of
+    ``want``'s largest magnitude with rtol 1e-3 beside it; the largest
+    gap over that magnitude).  An update is far smaller than
+    ``TRAIN_TOL``'s atol, which alone would pass one of the wrong size."""
+    ok, worst = True, 0.0
+    for field in ("params", "head", "opt_state", "head_opt_state"):
+        for g0, g1, w0, w1 in zip(*(tree_leaves(getattr(s, field))
+                                    for s in (*got, *want))):
+            dg, dw = (g1 - g0).cpu(), (w1 - w0).cpu()
+            scale, gap = float(dw.abs().max()), _max_err(dg, dw)
+            ok = ok and _within(dg, dw, atol=1e-3 * scale, rtol=1e-3)
+            worst = max(worst, gap / scale if scale else
+                        (float("inf") if gap else 0.0))
+    return ok, worst
+
+
+def phase_train() -> int:
+    """Phase 9 (the module docstring): returns K2's launches on the path
+    (run a)."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import split_parallel
+    from repro_torch.core.split_parallel import (make_train_step,
+                                                 merge_params, split_params)
+    from repro_torch.kernels.adagrad import ops as k2_ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model, count_params_analytic
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding.spec import values_tree
+    from repro_torch.tree import tree_map
+
+    run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
+                    learning_rate=TRAIN_LR, compute_dtype="float32", seed=0)
+    cfg = get_arch_config(TRAIN_ARCH)
+    untied = dataclasses.replace(cfg, tie_embeddings=False)
+    k = run.head_sync_period
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # a. the main path: train_loop, each step timed and checked
+    seen, step_s, head_moved, stale_moved, stale_is_head = {}, [], [], [], []
+
+    def checking(make):
+        def make_checked(api, opt, **kw):
+            init, step_fn = make(api, opt, **kw)
+            seen.update(api=api, opt=opt, step=step_fn)
+
+            def step(state, batch):
+                i = len(step_s)
+                if i == TRAIN_WARM:
+                    torch.cuda.reset_peak_memory_stats()
+                head, stale = state.head, state.head_stale
+                (state, metrics), took = _synced(step_fn, state, batch)
+                step_s.append(took)
+                head_moved.append(not _trees_equal(head, state.head))
+                stale_moved.append(not _trees_equal(stale, state.head_stale))
+                stale_is_head.append(_trees_equal(state.head_stale,
+                                                  state.head))
+                if i == 0:        # the first launch, checked and let go
+                    seen["first_leaves"] = _k2_rerun(k2_calls[0], "first")
+                    k2_calls[0] = None
+                seen["state"], seen["batch"] = state, batch
+                return state, metrics
+            return init, step
+        return make_checked
+
+    with contextlib.ExitStack() as stack:
+        k2_calls = stack.enter_context(_recording(k2_ops, "_update"))
+        stray = [stack.enter_context(_recording(module, attr, every=True))
+                 for module, attr in ((layers, "flash_attention"),
+                                      (rwkv, "wkv"), (mamba, "mamba_scan"))]
+        stack.enter_context(_patched(train, "make_train_step", checking))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses, state = train.train_loop(cfg, run, steps=TRAIN_STEPS,
+                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last_leaves = _k2_rerun(k2_calls[-1], "last")
+    del k2_calls
+    launches = counts["adagrad_update_leaves"]
+    api, opt = seen["api"], seen["opt"]
+    backbone, head = split_params(values_tree(api.init(None)))
+    n_leaves = (len(tree_leaves(backbone)), len(tree_leaves(head)))
+    n_params = sum(x.numel() for x in tree_leaves(
+        merge_params(state.params, state.head)))
+    check(api.cfg == untied and n_params == count_params_analytic(untied),
+          f"train: the untied {TRAIN_ARCH} at every width and depth, "
+          f"{n_params} params (analytic: {count_params_analytic(untied)})")
+    check(all(n <= MAX_LEAVES for n in n_leaves)
+          and (seen["first_leaves"], last_leaves) == n_leaves,
+          f"train: backbone and head trees of {n_leaves} f32 leaves, one "
+          f"K2 launch each; first and last launches took "
+          f"{seen['first_leaves']} and {last_leaves}")
+    check(launches == 2 * TRAIN_STEPS and counts["adagrad_update"] == 0,
+          f"train: K2 launched twice a step (backbone, head): {launches} "
+          f"launches in {TRAIN_STEPS} steps, {counts}")
+    check(not any(stray) and all(
+        counts[w.__name__] == 0 for w in (flash_attention, wkv, mamba_scan,
+                                          server_step_update)),
+          f"train: no call of K3, K4 or K5 and no other kernel launched: "
+          f"{[len(c) for c in stray]} calls, {counts}")
+    del stray
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train: finite losses: {losses}")
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last5 < first5, f"train: mean loss of the last 5 steps ({last5}) "
+          f"below the first 5 ({first5}): {losses}")
+    check(not head_moved[0] and head_moved[1],
+          f"train: the head bitwise unchanged by step 0 (no features yet, "
+          f"weight decay 0) and changed by step 1: {head_moved[:2]}")
+    syncs = [i for i in range(TRAIN_STEPS) if (i + 1) % k == 0]
+    check(all(stale_is_head[i] and stale_moved[i] for i in syncs)
+          and not any(stale_moved[i] for i in range(TRAIN_STEPS)
+                      if i not in syncs),
+          f"train: head_stale bitwise equal to the head after steps {syncs} "
+          f"and unchanged after the others: moved {stale_moved}, equal to "
+          f"head {stale_is_head}")
+    step_ms = 1e3 * statistics.median(step_s[TRAIN_WARM:])
+    say("9a train", arch=TRAIN_ARCH, params=n_params, layers=cfg.num_layers,
+        d_model=cfg.d_model, vocab=cfg.padded_vocab, untied="yes",
+        strategy=run.strategy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, lr=run.learning_rate, beta=run.adagrad_beta,
+        head_sync_period=k, loss_first=f"{losses[0]:.6f}",
+        loss_last=f"{losses[-1]:.6f}", loss_first5=f"{first5:.6f}",
+        loss_last5=f"{last5:.6f}",
+        losses=",".join(f"{x:.4f}" for x in losses),
+        adagrad_launches=launches, backbone_leaves=n_leaves[0],
+        head_leaves=n_leaves[1], k2_first_last_vs_plain="bitwise",
+        k3_k4_k5_calls=0, head_after_step0="unchanged",
+        head_after_step1="changed",
+        stale_synced_after=",".join(map(str, syncs)),
+        step_ms_median=f"{step_ms:.3f}",
+        step_ms=",".join(f"{1e3 * x:.3f}" for x in step_s),
+        tok_s=f"{tokens / step_ms * 1e3:.1f}",
+        peak_gb_steps_2_on=f"{peak_gb:.2f}", wall_s=f"{wall:.3f}")
+
+    # d. one more step traced, split at a mark where the server's half
+    # starts
+    state, batch, step_fn = seen["state"], seen["batch"], seen["step"]
+    with _patched(split_parallel, "server_head_update", _marked):
+        halves, others = _traced_halves(lambda: step_fn(state, batch))
+    k2_bound, _ = _k2_bound(tree_leaves(merge_params(state.params,
+                                                     state.head)),
+                            tree_leaves(merge_params(state.params,
+                                                     state.head)))
+    del state, batch, step_fn, seen
+    device_ms = sum(sum(h.values()) for h in halves.values())
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    say("9d train trace", strategy="split_concurrent",
+        step_device_ms=f"{device_ms:.3f}",
+        step_idle_share=f"{1 - device_ms / step_ms:.3f}",
+        **{f"step_{part}_ms": f"{sum(h[part] for h in halves.values()):.3f}"
+           for part in halves["client"]},
+        **{f"{half}_device_ms": f"{sum(h.values()):.3f}"
+           for half, h in halves.items()},
+        **{f"{half}_{part}_ms": f"{ms:.3f}" for half, h in halves.items()
+           for part, ms in h.items()},
+        k2_bound_ms_a_step=f"{k2_bound:.3f}", repo_kernels="adagrad (K2)",
+        step_other_top5=";".join(f"{name}:{ms:.3f}" for name, ms in top))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. dp_full against split_sequential from the same weights and batch,
+    # then each timed
+    api = build_model(untied, compute_dtype=torch.float32, remat=run.remat)
+    opt = get_optimizer("adagrad", run.learning_rate,
+                        adagrad_beta=run.adagrad_beta,
+                        weight_decay=run.weight_decay, use_kernel=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(run.seed)
+    params = values_tree(api.init(gen))
+    batches = _cuda_batches(np.random.default_rng(run.seed),
+                            TRAIN_TIMED_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab_size)
+    after_one, times, peaks = {}, {}, {}
+    for strategy in ("dp_full", "split_sequential"):
+        init, step = make_train_step(api, opt, strategy=strategy)
+        state, secs = init(params=params), []
+        for i, b in enumerate(batches):
+            if i == TRAIN_WARM:
+                torch.cuda.reset_peak_memory_stats()
+            (state, _), took = _synced(step, state, b)
+            secs.append(took)
+            if i == 0:
+                after_one[strategy] = merge_params(state.params, state.head)
+        times[strategy] = 1e3 * statistics.median(secs[TRAIN_WARM:])
+        peaks[strategy] = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    flat_dp, tdef = tree_flatten(after_one["dp_full"])
+    flat_sp = tdef.flatten_up_to(after_one["split_sequential"])
+    gap = max(_max_err(a, b) for a, b in zip(flat_dp, flat_sp))
+    check(gap <= 1e-6, f"train: one adagrad step of dp_full and of "
+          f"split_sequential from the same weights and batch give params "
+          f"within 1e-6: max gap {gap}")
+    del params, batches, after_one, flat_dp, flat_sp, api, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("9b train strategies", arch=TRAIN_ARCH, untied="yes",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_TIMED_STEPS,
+        dp_full_vs_split_sequential_max_gap=f"{gap:.3g}",
+        **{f"{name}_step_ms_median": f"{ms:.3f}"
+           for name, ms in times.items()},
+        **{f"{name}_tok_s": f"{tokens / ms * 1e3:.1f}"
+           for name, ms in times.items()},
+        **{f"{name}_peak_gb": f"{gb:.2f}" for name, gb in peaks.items()})
+
+    # c. the card against the host CPU at every width, depth cut to 2
+    cut = dataclasses.replace(untied, num_layers=TRAIN_CUT_LAYERS)
+    api = build_model(cut, compute_dtype=torch.float32, remat=run.remat)
+    gen.manual_seed(run.seed)
+    params = values_tree(api.init(gen))
+    host = tree_map(lambda x: x.cpu(), params)
+    on = {dev: _cuda_batches(np.random.default_rng(run.seed),
+                             TRAIN_CUT_STEPS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ,
+                             cfg.vocab_size, dev) for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    cpu_losses, cpu_states = _split_concurrent_run(api, run, host, on["cpu"])
+    cpu_s = time.perf_counter() - t0
+    results = {}
+    for name, fault in (("card", False), ("planted", True)):
+        losses_c, states_c = _split_concurrent_run(api, run, params,
+                                                   on["cuda"], fault=fault)
+        ok_state, gap_state = _state_gap(states_c[1], cpu_states[1])
+        ok_update, gap_update = _update_gap(states_c, cpu_states)
+        ok_loss = _within(losses_c.cpu(), cpu_losses, **TRAIN_TOL)
+        results[name] = (ok_state and ok_update and ok_loss,
+                         max(gap_state, _max_err(losses_c.cpu(), cpu_losses)),
+                         gap_update)
+        del states_c
+    check(results["card"][0], f"train: {TRAIN_CUT_STEPS} split_concurrent "
+          f"steps on the card within {TRAIN_TOL} of the host CPU's, every "
+          f"loss and state leaf, and every update and accumulator within "
+          f"1e-3 of its scale: max gap {results['card'][1]}, update gap "
+          f"{results['card'][2]} of its scale")
+    check(not results["planted"][0], f"train: a planted fault (the head "
+          f"trained on the current step's features) fails the card-vs-CPU "
+          f"check: its max gap is only {results['planted'][1]}, its update "
+          f"gap {results['planted'][2]} of its scale")
+    say("9c train card vs cpu", arch=TRAIN_ARCH, layers=TRAIN_CUT_LAYERS,
+        d_model=cut.d_model, params=sum(x.numel()
+                                        for x in tree_leaves(params)),
+        batch=TRAIN_CUT_BATCH, seq=TRAIN_CUT_SEQ, steps=TRAIN_CUT_STEPS,
+        losses_cpu=",".join(f"{float(x):.6f}" for x in cpu_losses),
+        max_gap_vs_cpu=f"{results['card'][1]:.3g}",
+        update_gap_of_scale=f"{results['card'][2]:.3g}",
+        tol=f"atol={TRAIN_TOL['atol']},rtol={TRAIN_TOL['rtol']}",
+        planted_fault="head_trained_on_current_features",
+        planted_max_gap_vs_cpu=f"{results['planted'][1]:.3g}",
+        planted_update_gap_of_scale=f"{results['planted'][2]:.3g}",
+        cpu_run_s=f"{cpu_s:.3f}")
+    del params, host, on, cpu_states, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _ptxas(name: str) -> list:
     """(CUDA function, registers a thread, spill bytes) of each entry
     function of kernel ``name``, from ptxas's ``-v`` lines in its build
@@ -1501,6 +1973,7 @@ def main() -> int:
                 launches=(1 + SERVE_GEN) * (jamba.num_layers - n_attn)),
          OnPath(flash_attention, launches=n_attn, **k3)],
         fault=_state_dropped("ssm"), moe=hybrid)["mamba_scan"]
+    kernels["adagrad"]["launches"] += phase_train()
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -1,2 +1,3 @@
 """Command-line drivers of the port: ``serve`` (batched prefill and greedy
-decode over the LM zoo)."""
+decode over the LM zoo) and ``train`` (LM training with the paper's split
+strategies)."""

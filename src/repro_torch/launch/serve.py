@@ -28,7 +28,7 @@ def generate(api, params, prompts, *, gen: int, extra_inputs=None):
     if extra_inputs:
         raise NotImplementedError(
             "extra inputs (vlm patches, encdec frames) come with later "
-            "slices of the port (ROADMAP.md, Queue 1 item 8)")
+            "slices of the port (ROADMAP.md, Queue 1 item 6)")
     cfg = api.cfg
     s = prompts.shape[1]
     with torch.inference_mode():

@@ -7,9 +7,11 @@ package's, so weights carried across compute the same layer.
 
 Full-sequence attention runs the flash attention kernel (K3) on the
 un-repeated k and v, where the JAX package runs its query-chunked jnp path
-(the same function); decode attention keeps that package's torch-op
-equivalent of ``_attend_grouped``.  Cross-attention comes with the
-encoder-decoder slice.
+(the same function).  K3 has no backward, so training asks for
+``differentiable=True``: the torch-op port of that jnp path
+(``_chunked_attend``), which autograd differentiates.  Decode attention
+keeps the JAX package's torch-op equivalent of ``_attend_grouped``.
+Cross-attention comes with the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.sharding.spec import Param, init_device, param, shard_act
+
+ATTN_QUERY_CHUNK = 1024  # max query block for chunked attention
 
 
 # ---------------------------------------------------------------------------
@@ -127,13 +131,9 @@ def _proj_qkv(p, cfg, x, kv_input):
 
 
 def _repeat_kv(k, num_heads: int):
-    """(B, S, Kv, hd) -> (B, S, H, hd) by group broadcast.
-
-    No path of the port calls it or ``_attend`` yet: K3 reads the
-    un-repeated k/v by head index, and decode uses ``_attend_grouped``.
-    The parity tests hold the pair to the JAX package's, whose
-    cross-attention calls them; the port's will with the encdec slice
-    (ROADMAP.md, Queue 1)."""
+    """(B, S, Kv, hd) -> (B, S, H, hd) by group broadcast (the
+    differentiable full-sequence path; K3 reads the un-repeated k/v by
+    head index)."""
     b, s, kv, hd = k.shape
     if kv == num_heads:
         return k
@@ -143,9 +143,7 @@ def _repeat_kv(k, num_heads: int):
 
 
 def _attend(q, k, v, mask, scale: float):
-    """q: (B,Q,H,hd), k/v: (B,S,H,hd), mask: (Q,S) | (B,Q,S) | None.
-
-    Not on a path of the port yet; see ``_repeat_kv``."""
+    """q: (B,Q,H,hd), k/v: (B,S,H,hd), mask: (Q,S) | (B,Q,S) | None."""
     scores = torch.einsum("bqhe,bshe->bhqs", q, k).float() * scale
     if mask is not None:
         mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
@@ -169,14 +167,59 @@ def _attend_grouped(q, k, v, mask, scale: float):
     return out.reshape(b, qlen, h, hd)
 
 
+def _chunked_attend(q, k, v, scale, *, causal: bool, window: int):
+    """Exact attention streamed over query chunks (bounded scores memory),
+    the port of the JAX package's ``_chunked_attend`` for self-attention
+    with positions ``arange(S)`` on both sides.
+
+    With a sliding window, each query chunk attends only to a sliced
+    (window + chunk)-sized KV segment, so windowed cost is O(S·(W+C)),
+    not O(S²).  q: (B,Q,H,hd), k/v: (B,S,H,hd) (already repeated)."""
+    b, qlen, h, hd = q.shape
+    s_kv = k.shape[1]
+    pos = torch.arange(max(qlen, s_kv), dtype=torch.int32, device=q.device)
+
+    def mask_for(q0: int, n: int, k0: int, m: int):
+        """(n, m) mask of queries q0.. against keys k0.."""
+        qpos, kpos = pos[q0:q0 + n, None], pos[None, k0:k0 + m]
+        mask = torch.ones((n, m), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (kpos > qpos - window)
+        return mask
+
+    chunk = min(ATTN_QUERY_CHUNK, qlen)
+    windowed = bool(window) and causal and s_kv > window + chunk
+    if qlen % chunk != 0 or (qlen == chunk and not windowed):
+        return _attend(q, k, v, mask_for(0, qlen, 0, s_kv), scale)
+    outs = []
+    for q0 in range(0, qlen, chunk):
+        qi = q[:, q0:q0 + chunk]
+        if windowed:
+            seg = window + chunk          # the KV segment a chunk can see
+            start = min(max(q0 - window, 0), s_kv - seg)
+            outs.append(_attend(qi, k[:, start:start + seg],
+                                v[:, start:start + seg],
+                                mask_for(q0, chunk, start, seg), scale))
+        else:
+            outs.append(_attend(qi, k, v, mask_for(q0, chunk, 0, s_kv),
+                                scale))
+    return torch.cat(outs, dim=1)
+
+
 def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
-              cache=None, cache_index=None, use_rope: bool = True):
+              cache=None, cache_index=None, use_rope: bool = True,
+              differentiable: bool = False):
     """Multi-head GQA self-attention.
 
     Modes:
       * full-sequence (train / prefill): ``cache is None``; ``positions``
         is ``arange(S)`` (the kernel counts query and key positions from
-        0).  Returns (out, (k, v)).
+        0).  Returns (out, (k, v)).  K3 computes it, unless
+        ``differentiable`` asks for ``_chunked_attend``'s torch ops,
+        which autograd differentiates (K3 refuses inputs that require
+        grad, so a training caller that forgets to ask raises).
       * decode: ``cache = (k, v, kv_pos)`` with k/v (B, S_cache, Kv, hd)
         and kv_pos (S_cache,) absolute positions (-1 = empty slot); x is
         (B, 1, D) and ``cache_index`` (an int) the new token's absolute
@@ -188,7 +231,7 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     if cache is not None and len(cache) == 2:
         raise NotImplementedError(
             "cross-attention comes with the encoder-decoder slice "
-            "(ROADMAP.md, Queue 1 item 8)")
+            "(ROADMAP.md, Queue 1 item 6)")
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
     q, k, v = _proj_qkv(p, cfg, x, x)
@@ -225,8 +268,13 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     q = shard_act(q, "batch", "seq", "heads", None)
     k = shard_act(k, "batch", "seq", "kv_heads", None)
     v = shard_act(v, "batch", "seq", "kv_heads", None)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=causal, window=window)
+    if differentiable:
+        out = _chunked_attend(q, _repeat_kv(k, cfg.num_heads),
+                              _repeat_kv(v, cfg.num_heads), scale,
+                              causal=causal, window=window)
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=causal, window=window)
     out = shard_act(out, "batch", "seq", "heads", None)
     y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
     return shard_act(y, "batch", "seq", None), (k, v)

@@ -1,9 +1,10 @@
 """Model factory: one API over the architecture families the port runs.
 
-The port of ``repro.models.model`` for the serving path.  ``build_model(cfg)``
-returns a ``ModelApi`` with:
+The port of ``repro.models.model``.  ``build_model(cfg)`` returns a
+``ModelApi`` with:
 
   init(generator)              -> Param tree on the generator's device
+  train_loss(params, batch)    -> (loss, metrics)   [full values tree]
   forward_features(params, batch) -> (logits, aux, features)
   head_logits(params, features)   -> logits
   prefill(params, batch)       -> (logits, cache)
@@ -14,8 +15,10 @@ returns a ``ModelApi`` with:
 Families ``dense`` (``transformer``), ``ssm`` (``rwkv``) and ``hybrid``
 (``hybrid``: Mamba, attention and MoE) are ported, dispatched on
 ``cfg.family`` as the JAX factory does; ``moe`` (the transformer-family
-MoE), ``encdec`` and ``vlm`` raise ``NotImplementedError``, and
-``train_loss`` comes with the training slice (ROADMAP.md).
+MoE), ``encdec`` and ``vlm`` raise ``NotImplementedError``.  Training
+(``train_loss``, and ``forward_features(differentiable=True)``) runs the
+``dense`` family; ``ssm`` and ``hybrid`` raise ``NotImplementedError``
+there, since their recurrences run only as forward kernels (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
@@ -32,10 +36,13 @@ from repro_torch.sharding.spec import values_tree
 from repro_torch.tree import as_tensor, tree_flatten
 
 _LATER = {
-    "moe": "Queue 1 item 8 (the MoE block of transformer.py)",
-    "encdec": "Queue 1 item 8 (encdec.py)",
-    "vlm": "Queue 1 item 8 (the vlm input of transformer.py)",
+    "moe": "Queue 1 item 6 (the MoE block of transformer.py)",
+    "encdec": "Queue 1 item 6 (encdec.py)",
+    "vlm": "Queue 1 item 6 (the vlm input of transformer.py)",
 }
+#: families whose training forward is not ported: their recurrences run
+#: only as forward kernels (K4, K5)
+_NO_TRAINING = "Queue 1 item 5 (ssm and hybrid training)"
 
 
 def lm_loss(logits, labels, mask):
@@ -47,10 +54,52 @@ def lm_loss(logits, labels, mask):
     return nll.sum() / mask.sum().clamp_min(1.0)
 
 
+def _chunk_logsumexp(m, ssum, gold, feats, w_c, labels, off: int):
+    """One vocab chunk of :func:`lm_loss_chunked`: its logits folded into
+    the running max ``m``, sum ``ssum`` and label logit ``gold``."""
+    vc = w_c.shape[1]
+    logits = (feats @ w_c.to(feats.dtype)).float()
+    m_new = torch.maximum(m, logits.amax(-1))
+    ssum = ssum * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[..., None]).sum(-1)
+    local = labels.long() - off
+    in_chunk = (local >= 0) & (local < vc)
+    picked = torch.gather(logits, -1, local.clamp(0, vc - 1)[..., None])
+    return m_new, ssum, torch.where(in_chunk, picked[..., 0], gold)
+
+
+def lm_loss_chunked(feats, head_w, labels, mask, *, n_chunks: int = 8):
+    """Cross-entropy without materialising the (B, S, V) logits tensor.
+
+    Loops over vocab chunks of the head matmul with an online logsumexp
+    (running max and sum) and picks the label logit from whichever chunk
+    owns it; each chunk runs under ``torch.utils.checkpoint``, so the
+    backward pass recomputes its logits and peak logits memory is
+    V/n_chunks of :func:`lm_loss`'s.  feats: (B,S,D); head_w: (D,V)."""
+    b, s, _ = feats.shape
+    v = head_w.shape[1]
+    if v % n_chunks:
+        raise ValueError(f"vocab {v} is not a multiple of n_chunks "
+                         f"{n_chunks}")
+    vc = v // n_chunks
+    dev = feats.device
+    m = torch.full((b, s), -1e30, dtype=torch.float32, device=dev)
+    ssum = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        m, ssum, gold = checkpoint(_chunk_logsumexp, m, ssum, gold, feats,
+                                   head_w[:, c * vc:(c + 1) * vc], labels,
+                                   c * vc, use_reentrant=False)
+    lse = torch.log(ssum.clamp_min(1e-30)) + m
+    nll = (lse - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
+
+
 @dataclass
 class ModelApi:
     cfg: ArchConfig
     init: Callable[..., Any]
+    train_loss: Callable[..., Any]
     forward_features: Callable[..., Any]   # pre-head hidden states
     head_logits: Callable[..., Any]        # features -> logits
     prefill: Callable[..., Any]
@@ -73,21 +122,50 @@ def _module(cfg: ArchConfig):
     return _MODULES[family]
 
 
-def build_model(cfg: ArchConfig, *,
-                compute_dtype=torch.bfloat16) -> ModelApi:
+def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
+                remat: bool = True, loss_chunks: int = 0) -> ModelApi:
+    """``remat``: the training forward recomputes each block in the
+    backward pass.  ``loss_chunks`` > 1: ``train_loss`` takes
+    :func:`lm_loss_chunked` over that many vocab chunks."""
     mod = _module(cfg)
 
     def init(generator):
         return mod.init_model(generator, cfg)
 
     def forward_features(params, batch, *, window=None,
-                         compute_logits=True):
+                         compute_logits=True, differentiable=False):
+        """Backbone forward up to the pre-head hidden states;
+        ``differentiable`` for a pass autograd can differentiate."""
+        kw = {}
+        if differentiable:
+            if cfg.family != "dense":
+                raise NotImplementedError(
+                    f"training the {cfg.family!r} family ({cfg.name}) "
+                    f"comes with a later slice of the port: ROADMAP.md, "
+                    f"{_NO_TRAINING}")
+            kw = dict(remat=remat, differentiable=True)
         return mod.forward_train(params, cfg, batch["tokens"],
                                  dtype=compute_dtype, window=window,
-                                 compute_logits=compute_logits)
+                                 compute_logits=compute_logits, **kw)
 
     def head_logits(params, feats):
         return L.lm_logits(params["head"], params["embed"], cfg, feats)
+
+    def train_loss(params, batch, *, window=None):
+        if loss_chunks > 1:
+            # fused vocab-chunked head and loss: full logits never made
+            _, aux, feats = forward_features(params, batch, window=window,
+                                             compute_logits=False,
+                                             differentiable=True)
+            head_w = (params["embed"]["table"].T if cfg.tie_embeddings
+                      else params["head"]["w"])
+            loss = lm_loss_chunked(feats, head_w, batch["labels"],
+                                   batch["mask"], n_chunks=loss_chunks)
+            return loss + aux, {"loss": loss, "aux": aux}
+        logits, aux, _ = forward_features(params, batch, window=window,
+                                          differentiable=True)
+        loss = lm_loss(logits, batch["labels"], batch["mask"])
+        return loss + aux, {"loss": loss, "aux": aux}
 
     def prefill(params, batch, *, window=None, cache_len=None):
         return mod.prefill(params, cfg, batch["tokens"], dtype=compute_dtype,
@@ -110,7 +188,8 @@ def build_model(cfg: ArchConfig, *,
             spec["mask"] = ((b, shape.seq_len), torch.float32)
         return spec
 
-    return ModelApi(cfg=cfg, init=init, forward_features=forward_features,
+    return ModelApi(cfg=cfg, init=init, train_loss=train_loss,
+                    forward_features=forward_features,
                     head_logits=head_logits, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache,
                     batch_spec=batch_spec)
@@ -179,4 +258,4 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda"):
 
 
 __all__ = ["ModelApi", "build_model", "count_params_analytic", "lm_loss",
-           "params_from_numpy"]
+           "lm_loss_chunked", "params_from_numpy"]

@@ -12,7 +12,7 @@ package leaves them to XLA: no kernel of the repository computes them.
 
 The JAX package's expert-parallel ``shard_map`` path
 (``_apply_moe_sharded``) is not ported: it needs a mesh, and comes with the
-sharding slice (ROADMAP.md, Queue 1 item 11).  On one device the JAX
+sharding slice (ROADMAP.md, Queue 1 item 7).  On one device the JAX
 package takes the local path too.
 """
 from __future__ import annotations

@@ -8,7 +8,9 @@ JAX package scans.  A MoE block or a ``vlm`` input is refused.
 
 Modes:
   * ``forward_train``: full sequence, returns (logits, aux_loss, features);
-    a forward pass (the kernels have no backward)
+    with ``differentiable`` a pass autograd can differentiate (attention
+    in torch ops, each block rematerialised in the backward pass under
+    ``remat``), else a forward pass through K3 (no backward)
   * ``prefill``: full sequence, returns (logits_last, cache)
   * ``decode_step``: one token against a KV cache (ring buffer when a
     sliding window is configured), updated in place
@@ -16,6 +18,7 @@ Modes:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -23,7 +26,7 @@ from repro_torch.sharding.spec import Param
 from repro_torch.tree import tree_flatten, tree_map
 
 _NOT_PORTED = ("{} comes with a later slice of the port (ROADMAP.md, "
-               "Queue 1 item 8)")
+               "Queue 1 item 6)")
 
 
 def _check_family(cfg):
@@ -96,11 +99,11 @@ def init_model(generator, cfg):
 
 
 def _apply_block(bp, cfg, x, *, positions, window, cache=None,
-                 cache_index=None):
+                 cache_index=None, differentiable=False):
     h, new_cache = L.attention(
         bp["attn"], cfg, L.apply_norm(bp["attn_norm"], cfg, x),
         positions=positions, window=window, cache=cache,
-        cache_index=cache_index)
+        cache_index=cache_index, differentiable=differentiable)
     x = x + h
     hn = L.apply_norm(bp["ffn_norm"], cfg, x)
     return x + L.apply_mlp(bp["mlp"], cfg, hn), new_cache
@@ -118,15 +121,29 @@ def _embed_inputs(params, cfg, tokens, patches, dtype):
 
 
 def forward_train(params, cfg, tokens, *, patches=None,
-                  dtype=torch.bfloat16, window=None, compute_logits=True):
+                  dtype=torch.bfloat16, window=None, remat=True,
+                  compute_logits=True, differentiable=False):
     """tokens: (B, S).  Returns (logits, aux_loss, features): ``features``
-    are the pre-head hidden states (the paper's split point)."""
+    are the pre-head hidden states (the paper's split point).
+
+    ``differentiable``: attention in torch ops, for training (K3 refuses
+    inputs that require grad).  ``remat``: while autograd records, each
+    block runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward pass, as the JAX package's ``jax.checkpoint(body)``."""
     window = cfg.sliding_window if window is None else window
     x = _embed_inputs(params, cfg, tokens, patches, dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def body(bp, x):
+        return _apply_block(bp, cfg, x, positions=positions, window=window,
+                            differentiable=differentiable)[0]
+
     for i in range(cfg.num_layers):
-        x, _ = _apply_block(layer(params["blocks"], i), cfg, x,
-                            positions=positions, window=window)
+        bp = layer(params["blocks"], i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(body, bp, x, use_reentrant=False)
+        else:
+            x = body(bp, x)
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
               if compute_logits else None)

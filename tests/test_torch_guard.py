@@ -48,7 +48,8 @@ SLICE_MODULES = (
     "models.transformer", "models.rwkv", "models.model", "launch.serve",
     "kernels.flash_attention.ops", "kernels.flash_attention.ref",
     "kernels.rwkv6.ops", "kernels.rwkv6.ref", "kernels.mamba.ops",
-    "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid")
+    "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid",
+    "launch.train", "launch.steps")
 
 #: The modules the port carries as byte copies (the only change is
 #: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
@@ -71,7 +72,7 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     imported = set(out.stdout.split())
-    assert len(imported) >= 58                    # every module was imported
+    assert len(imported) >= 60                    # every module was imported
     assert {f"repro_torch.{m}" for m in SLICE_MODULES} <= imported
 
 
@@ -105,7 +106,7 @@ def _entry_points():
         return FederatedTrainingLoop(FederatedTrainer(Dist()), None, state)
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model
 
     lm = get_smoke_config("rwkv6-1.6b")
@@ -119,6 +120,7 @@ def _entry_points():
         "lm_params_from_numpy": lambda: model.params_from_numpy(lm, {}),
         "lm_init_cache": lambda: model.build_model(lm).init_cache(1, 8),
         "serve_main": lambda: serve.main(["--smoke"]),
+        "train_main": lambda: train.main(["--smoke"]),
     }
 
 
@@ -126,7 +128,7 @@ def _entry_points():
                                    "params_from_numpy", "CnnGradShard",
                                    "FederatedTrainingLoop",
                                    "lm_params_from_numpy", "lm_init_cache",
-                                   "serve_main"])
+                                   "serve_main", "train_main"])
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
                                                           entry):
     from dataclasses import fields
