@@ -19,13 +19,16 @@ Phases, one line each:
      gradient stack and a contiguous one, with p aligned and at a
      1-element offset; K2 one leaf a call and in lists (the FIG2 step,
      mixed dtype pairs, empty, 0-d and unaligned leaves, more leaves than a
-     launch takes); each kernel's and its plain version's times on the
-     card at the main path's shapes beside the card's bound (K1 at the
+     launch takes); K3 also with fewer or more queries than keys
+     (Whisper's cross-attention shape among them); each kernel's and its
+     plain version's times on the card at the main path's shapes beside
+     the card's bound (K1 at the
      FIG4 step with M 4 and 8 on both stacks and at a 537 MB bandwidth
      shape; K1 and K2 beside one launch of a 1-element ``add_``, and also
      as a caller that issues one call at a time waits for them,
      ``unheld``; K2 also one launch a leaf; K3 also beside PyTorch's
-     ``scaled_dot_product_attention``, which nothing on the path calls);
+     ``scaled_dot_product_attention``, which nothing on the path calls; and
+     at Whisper's encoder and cross-attention shapes, non-causal);
      3c. K4 (the Mamba selective scan) likewise, bitwise in every case,
      ragged DI, T 1-3 and 65 for every ds and B 3 included, and its exp
      bitwise equal to ``torch.exp`` (a case isolates the exp); its decode
@@ -77,7 +80,23 @@ Phases, one line each:
      that check; d. step times, tokens/s, peak memory, and one traced step
      split into matrix products, K2 and the rest, for the clients' half
      and the server's (split at a mark kernel launched where the server's
-     half starts).
+     half starts);
+ 10. serving qwen3-moe-30b-a3b at every published width (128 experts, top
+     8), cut to 24 of 48 layers (``MOE_CUT``), as phase 6 with the MoE's
+     dropped assignments counted as in phase 8; if drops touch every batch
+     row, the same prompts are served and held to their forward again at a
+     capacity factor where nothing drops, and both are printed;
+ 11. serving internvl2-26b at every published width, cut to 24 of 48
+     layers (``VLM_CUT``): 256 patch embeddings (normal(0, 0.02)) before
+     256 text tokens, decoded at P + S + i; its planted fault decodes at
+     the JAX package's ``generate``'s index, S + i;
+ 12. serving whisper-small whole: 1,500 encoder frames (normal(0, 0.02))
+     and a decoder prompt of 64 (``WHISPER_PROMPT``), one K3 launch for
+     each encoder layer and two for each decoder layer (self and cross) of
+     the prefill; the first encoder launch (Skv 1,500, non-causal), the
+     first cross launch (Sq 64, Skv 1,500) and the last re-run through the
+     plain version; its planted fault zeroes the cross K/V the prefill
+     hands over.
 
 The launch counts of each kernel are set to 0 just before the path that
 runs it and read just after.  The line before the last is one JSON object
@@ -119,7 +138,8 @@ from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
-from repro_torch.models import cnn, hybrid, layers, mamba, rwkv  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    cnn, hybrid, layers, mamba, rwkv, transformer)
 from repro_torch.models.moe import dispatch_load  # noqa: E402
 from repro_torch.train_fabric import server_step as step_mod  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_leaves  # noqa: E402
@@ -159,6 +179,16 @@ K3_SHAPES = ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
              (2, 192, 6, 2, 32), (2, 100, 4, 2, 64), (1, 1, 4, 1, 64),
              (2, 65, 8, 2, 128), (2, 65, 6, 2, 32))
 K3_MASKS = ((True, 0), (False, 0), (True, 64))
+#: K3 with fewer or more queries than keys (b, sq, skv, hq, hkv, hd), as
+#: Whisper's cross-attention (Sq 64 against Skv 1,500 frames) and decode-
+#: and prompt-sized ragged cases
+K3_CROSS_SHAPES = ((2, 64, 1500, 12, 12, 64), (2, 1, 100, 4, 2, 64),
+                   (1, 100, 37, 8, 2, 128), (2, 65, 200, 6, 2, 32))
+#: Whisper's K3 shapes on the serve path (b, sq, skv, h, hd), non-causal:
+#: the encoder's self-attention over 1,500 frames and the decoder's
+#: cross-attention from its 64-token prompt
+K3_WHISPER = {"whisper_encoder": (4, 1500, 1500, 12, 64),
+              "whisper_cross": (4, 64, 1500, 12, 64)}
 #: test_rwkv6_wkv_sweep's grid (b, t, h, hd), plus the short sequences that
 #: only fill and drain the row groups' wavefront
 K5_SHAPES = ((1, 64, 2, 64), (2, 200, 4, 64), (1, 128, 8, 32)) + tuple(
@@ -185,10 +215,21 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
 #: requires the same check to fail on it.
 SERVE_TOL = {"qwen3-4b": dict(atol=1e-3, rtol=0.0),
              "rwkv6-1.6b": dict(atol=3e-3, rtol=0.0),
-             "jamba-1.5-large-398b": dict(atol=1e-3, rtol=0.0)}
+             "jamba-1.5-large-398b": dict(atol=1e-3, rtol=0.0),
+             "qwen3-moe-30b-a3b": dict(atol=1e-3, rtol=0.0),
+             "internvl2-26b": dict(atol=1e-3, rtol=0.0),
+             "whisper-small": dict(atol=1e-3, rtol=0.0)}
 #: the Jamba deployment served on one card: every published width, depth
 #: cut to one period of 2 layers (the JAX package's smoke layout)
 JAMBA_CUT = dict(num_layers=2, attn_layer_period=2, attn_layer_offset=1)
+#: qwen3-moe-30b-a3b and internvl2-26b served on one card: every published
+#: width, 24 of 48 layers (15,577,751,552 and 10,538,489,856 params, 62.31
+#: and 42.15 GB in f32; whole, 122.13 and 79.60 GB)
+MOE_CUT = dict(num_layers=24)
+VLM_CUT = dict(num_layers=24)
+#: Whisper's decoder prompt (its decoder context is 448 tokens,
+#: arXiv:2212.04356), beside the 1,500 encoder frames
+WHISPER_PROMPT = 64
 
 
 def say(phase: str, **fields) -> None:
@@ -540,13 +581,19 @@ def _bound(nbytes: int, flops: float, peak: float = PEAK_F32_FLOP_S) -> tuple:
 
 def _k3_bound(q, k, causal: bool = True) -> tuple:
     """Bytes: q, k, v read and out written once.  Operations: the two
-    products over the (query, key) pairs this mask leaves visible, on the
-    route that meets the bar: the tensor cores' TF32 in three passes for
-    f32 inputs (hi/lo split), in one pass for q.K^T and two for P V under
-    bf16 (exact in TF32).  Returns (ms, what bounds it, the operations' ms
-    on the f32 CUDA cores)."""
-    b, s, hq, hd = q.shape
-    pairs = s * (s + 1) // 2 if causal else s * s
+    products over the (query, key) pairs this mask leaves visible
+    (positions aligned top-left, as the kernel's), on the route that meets
+    the bar: the tensor cores' TF32 in three passes for f32 inputs (hi/lo
+    split), in one pass for q.K^T and two for P V under bf16 (exact in
+    TF32).  Returns (ms, what bounds it, the operations' ms on the f32 CUDA
+    cores)."""
+    b, sq, hq, hd = q.shape
+    skv = k.shape[1]
+    if causal:    # query i sees keys 0..min(i, Skv - 1)
+        n = min(sq, skv)
+        pairs = n * (n + 1) // 2 + (sq - n) * skv
+    else:
+        pairs = sq * skv
     flops = 4 * b * hq * hd * pairs
     passes = 3 if q.dtype == torch.float32 else 1.5
     ms, by = _bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
@@ -576,9 +623,12 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
 
     # K3 against attention_ref on the same inputs
     k3_err, k3_cases = {"float32": 0.0, "bfloat16": 0.0}, 0
-    for b, s, hq, hkv, hd in K3_SHAPES:
+    for b, sq, skv, hq, hkv, hd in tuple(
+            (b, s, s, hq, hkv, hd) for b, s, hq, hkv, hd in K3_SHAPES
+    ) + K3_CROSS_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (rand(b, s, h, hd, dtype=dtype) for h in (hq, hkv, hkv))
+            q = rand(b, sq, hq, hd, dtype=dtype)
+            k, v = (rand(b, skv, hkv, hd, dtype=dtype) for _ in range(2))
             for causal, window in K3_MASKS:
                 got = flash_attention(q, k, v, causal=causal, window=window)
                 want = attention_ref(
@@ -589,7 +639,7 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
                 name = str(dtype).split(".")[1]
                 check(got.dtype == dtype and _within(got, want, **tol),
                       f"K3 within {tol} of its plain version at "
-                      f"{(b, s, hq, hkv, hd)} {name} causal={causal} "
+                      f"{(b, sq, skv, hq, hkv, hd)} {name} causal={causal} "
                       f"window={window}: max err {_max_err(got, want)}")
                 k3_err[name] = max(k3_err[name], _max_err(got, want))
                 k3_cases += 1
@@ -614,6 +664,26 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
             bound=_k3_bound(q, k))
+        del q, k, v, qt, kt, vt, got, want
+    # Whisper's shapes, non-causal: the encoder and the cross-attention
+    for model, (b, sq, skv, h, hd) in K3_WHISPER.items():
+        q = rand(b, sq, h, hd)
+        k, v = (rand(b, skv, h, hd) for _ in range(2))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention(q, k, v, causal=False)
+        want = attention_ref(qt, kt, vt, causal=False).transpose(1, 2)
+        torch.cuda.synchronize()
+        check(_within(got, want, **TOL_F32), f"K3 within {TOL_F32} at "
+              f"{model}'s shape: max err {_max_err(got, want)}")
+        k3_err["float32"] = max(k3_err["float32"], _max_err(got, want))
+        k3_cases += 1
+        k3_times[model] = dict(
+            ms=timer(lambda: flash_attention(q, k, v, causal=False)),
+            plain_ms=timer(lambda: attention_ref(qt, kt, vt, causal=False)),
+            library_ms=timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt)),
+            bound=_k3_bound(q, k, causal=False))
         del q, k, v, qt, kt, vt, got, want
     k3 = k3_times["qwen3-4b"]
     (k3_bound, k3_by, k3_core), jam = k3["bound"], k3_times["jamba"]
@@ -681,6 +751,15 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
         k3_jamba_bound_cuda_core_ms=f"{jam['bound'][2]:.6f}",
         k3_jamba_shape=f"B{SERVE_BATCH},S{SERVE_PROMPT},Hq64,Hkv8,hd128,f32,"
                        f"causal",
+        **{f"k3_{model}_{key}": f"{k3_times[model][key]:.6f}"
+           for model in K3_WHISPER
+           for key in ("ms", "plain_ms", "library_ms")},
+        **{f"k3_{model}_bound_ms": f"{k3_times[model]['bound'][0]:.6f}"
+           for model in K3_WHISPER},
+        **{f"k3_{model}_bound_by": k3_times[model]["bound"][1]
+           for model in K3_WHISPER},
+        **{f"k3_{model}_shape": "B{},Sq{},Skv{},H{},hd{},f32,noncausal"
+           .format(*shape) for model, shape in K3_WHISPER.items()},
         k5_cases=k5_cases, k5_bitwise="yes", k5_max_err=f"{k5_err:.3g}",
         k5_ms=f"{k5_ms:.6f}", k5_plain_ms=f"{k5_plain:.6f}",
         k5_bound_ms=f"{k5_bound:.6f}", k5_bound_by=k5_by,
@@ -1179,12 +1258,18 @@ def _device_split(fn) -> dict:
     """The device time (ms) of the kernels of one call of ``fn``, from a
     ``torch.profiler`` trace of it (one call first, untraced, so the trace
     sees no first-call work): in all, and split into the repository's
-    kernels, matrix products and the rest."""
+    kernels, matrix products and the rest; and ``warm``, the CUDA-event
+    time of the untraced call (host issue included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with torch.inference_mode():           # the cache is an inference tensor
+        torch.cuda.synchronize()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1196,7 +1281,8 @@ def _device_split(fn) -> dict:
             continue
         split[_part(e.key)] += e.self_device_time_total / 1e3
     check(any(split.values()), "the profiler traced the call's kernels")
-    return dict(split, all=sum(split.values()))
+    return dict(split, all=sum(split.values()),
+                warm=start.elapsed_time(end))
 
 
 def _off_by_one_slot(api):
@@ -1208,23 +1294,36 @@ def _off_by_one_slot(api):
         api.decode_step(params, cache, token, index - 1, **kw))
 
 
-def _state_dropped(key: str):
-    """A planted fault: decoding starts from a zero recurrent state under
-    cache ``key`` (RWKV's ``wkv``, Mamba's ``ssm``), not from the one the
-    prefill hands over."""
+def _reference_index(api):
+    """A planted fault: each decode step at the index the JAX package's
+    ``generate`` gives a vlm, S_text + i, which leaves out the P patch
+    positions before the text (ROADMAP.md, Queue 3, notes on the
+    reference)."""
+    patches = api.cfg.num_patches
+    return dataclasses.replace(
+        api, decode_step=lambda params, cache, token, index, **kw:
+        api.decode_step(params, cache, token, index - patches, **kw))
+
+
+def _state_dropped(*keys: str):
+    """A planted fault: decoding starts from zeros under cache ``keys``
+    (RWKV's ``wkv``, Mamba's ``ssm``, Whisper's ``cross_k`` and
+    ``cross_v``), not from what the prefill hands over."""
     def fault(api):
         def prefill(*args, **kwargs):
             logits, cache = api.prefill(*args, **kwargs)
-            return logits, dict(cache, **{key: torch.zeros_like(cache[key])})
+            return logits, dict(cache, **{k: torch.zeros_like(cache[k])
+                                          for k in keys})
         return dataclasses.replace(api, prefill=prefill)
-    fault.__name__ = f"{key}_state_dropped"
+    fault.__name__ = f"{'+'.join(keys)}_state_dropped"
     return fault
 
 
-def _serve(api, params, prompts):
-    """``generate`` with each prefill and decode step timed by CUDA events
-    and its last position's logits kept: (tokens, logits (B, 1 + GEN, V),
-    the steps' ms, the last cache)."""
+def _serve(api, params, prompts, extras):
+    """``generate`` (``extras``: its ``extra_inputs``) with each prefill
+    and decode step timed by CUDA events and its last position's logits
+    kept: (tokens, logits (B, 1 + GEN, V), the steps' ms, the last
+    cache)."""
     from repro_torch.launch.serve import generate
 
     vocab = api.cfg.vocab_size
@@ -1245,32 +1344,55 @@ def _serve(api, params, prompts):
 
     toks = generate(dataclasses.replace(api, prefill=timed(api.prefill),
                                         decode_step=timed(api.decode_step)),
-                    params, prompts, gen=SERVE_GEN)
+                    params, prompts, gen=SERVE_GEN, extra_inputs=extras)
     torch.cuda.synchronize()
     return (toks, torch.stack(served, 1),
             [s.elapsed_time(e) for s, e in spans], last["cache"])
 
 
-def _teacher_forced(api, params, prompts, toks):
+def _prefix(cfg) -> int:
+    """Positions before the text: a vlm sequence starts with its
+    patches."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
+
+
+def _extra_inputs(cfg, rng) -> dict:
+    """The extra inputs of a family's prefill, drawn as the serve CLI
+    draws them: normal(0, 0.02) from the prompts' generator, f32."""
+    b = SERVE_BATCH
+    shapes = {"vlm": ("patches", (b, cfg.num_patches, cfg.d_model)),
+              "encdec": ("frames", (b, cfg.encoder_seq_len, cfg.d_model))}
+    if cfg.family not in shapes:
+        return {}
+    name, shape = shapes[cfg.family]
+    return {name: torch.from_numpy(rng.normal(0, 0.02, shape)).to(
+        "cuda", torch.float32)}
+
+
+def _teacher_forced(api, params, prompts, toks, extras):
     """One forward over prompt + served tokens: the logits of positions
-    S-1 .. S+GEN-1, which the served steps produced one by one."""
+    P+S-1 .. P+S+GEN-1 (P: a vlm's patch positions), which the served steps
+    produced one by one."""
     with torch.inference_mode():
         tf, _, _ = api.forward_features(
-            params, {"tokens": torch.cat([prompts, toks], 1)})
-    return tf[:, SERVE_PROMPT - 1:, :api.cfg.vocab_size]
+            params, dict(extras, tokens=torch.cat([prompts, toks], 1)))
+    start = _prefix(api.cfg) + prompts.shape[1] - 1
+    return tf[:, start:, :api.cfg.vocab_size]
 
 
 @dataclasses.dataclass(frozen=True)
 class OnPath:
     """A kernel on a serve path: its wrapper, which the model calls as
     ``module.attr``; its plain version and the bar of a launch re-run
-    through it (one per output); the launches the path must make."""
+    through it (one per output); the launches the path must make; and the
+    launches re-run, (name, index in the order of launch)."""
     wrapper: object
     module: object
     attr: str
     plain: object
     tol: tuple
     launches: int
+    rerun: tuple = (("first", 0), ("last", -1))
 
 
 def _moe_drops(calls) -> dict:
@@ -1288,20 +1410,35 @@ def _moe_drops(calls) -> dict:
             "rows": rows}
 
 
-def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
+def _no_drop(cfg):
+    """``cfg`` at the MoE capacity factor E/k, where every expert has a
+    slot for every token: no assignment drops."""
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.num_experts_per_tok))
+
+
+def phase_serve(phase: str, cfg, kernels, fault, moe=None,
+                prompt: int = SERVE_PROMPT) -> dict:
     """``generate`` on ``cfg`` at its widths, f32, with every launch of
-    each kernel of ``kernels`` (``OnPath``) counted and its first and last
+    each kernel of ``kernels`` (``OnPath``) counted and the ones it names
     recorded; then the checks described in the module docstring.  Each
-    kernel must launch its ``launches`` times while serving.  With ``moe``
-    (the module through which the model calls ``apply_moe``) the dropped
+    kernel must launch its ``launches`` times while serving.  ``prompt``
+    positions: a vlm's patches, then its text; an encdec model's decoder
+    prompt, beside its ``encoder_seq_len`` frames.  With ``moe`` (the
+    module through which the model calls ``apply_moe``) the dropped
     assignments of the served run and of the teacher-forced forward are
     counted, and a batch row that any drop touched is left out of the
-    served-vs-forward comparison.  Then ``fault`` (the api with a planted
-    fault) serves the same prompts, and the served-vs-forward check must
-    fail on it.  Last, the kernels of one more decode step and of one more
-    prefill are traced: the decode step's device time beside its time as
-    served gives the device's idle share while decoding, and both are
-    split into the repository's kernels, matrix products and the rest.
+    served-vs-forward comparison; if no row is left, the same prompts are
+    served and compared again at a capacity factor where nothing drops
+    (``_no_drop``), and both are printed.  Then ``fault`` (the api with a
+    planted fault) serves the same prompts, and the served-vs-forward check
+    must fail on it.  Last, the kernels of one more decode step and of one
+    more prefill are traced: the decode step's device time beside its time
+    as served gives the device's idle share while decoding, and both are
+    split into the repository's kernels, matrix products and the rest, and
+    the prefill is timed once more warm (``prefill_warm_ms``; the served
+    prefill is the model's first call, which pays for first use).
     Returns each kernel's launches by name."""
     from repro_torch.models.model import build_model, count_params_analytic
     from repro_torch.sharding.spec import values_tree
@@ -1317,21 +1454,26 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
     check(n_params == count_params_analytic(cfg),
           f"{arch}: {n_params} params, the analytic count says "
           f"{count_params_analytic(cfg)}")
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda", torch.int32)
+    rng = np.random.default_rng(0)
+    s_text = prompt - _prefix(cfg)
+    prompts = torch.from_numpy(rng.integers(
+        0, vocab, (SERVE_BATCH, s_text))).to("cuda", torch.int32)
+    extras = _extra_inputs(cfg, rng)
 
     with contextlib.ExitStack() as routing:
         moe_calls = (routing.enter_context(_recording(moe, "apply_moe",
                                                       every=True))
                      if moe is not None else [])
         with contextlib.ExitStack() as launching:
-            launched = [launching.enter_context(_recording(k.module, k.attr))
-                        for k in kernels]
+            launched = [launching.enter_context(_recording(
+                k.module, k.attr,
+                every=any(i not in (0, -1) for _, i in k.rerun)))
+                for k in kernels]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             t0 = time.perf_counter()
-            toks, served, ms, cache = _serve(api, params, prompts)
+            toks, served, ms, cache = _serve(api, params, prompts, extras)
             wall = time.perf_counter() - t0
             counts = {w.__name__: w.launches for w in WRAPPERS}
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1339,7 +1481,7 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
         del moe_calls[:]
         # the served logits against one teacher-forced forward over the
         # same tokens
-        tf = _teacher_forced(api, params, prompts, toks)
+        tf = _teacher_forced(api, params, prompts, toks, extras)
     for k in kernels:
         got = counts[k.wrapper.__name__]
         check(got == k.launches,
@@ -1352,7 +1494,7 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
     check(bool(torch.isfinite(served).all()), f"{arch}: finite logits")
 
     rows = torch.ones(SERVE_BATCH, dtype=torch.bool, device="cuda")
-    moe_fields = {}
+    row_fields = {}
     if moe is not None:
         n_moe = len(served_moe) // (1 + SERVE_GEN)
         check(n_moe > 0 and len(served_moe) == n_moe * (1 + SERVE_GEN)
@@ -1363,12 +1505,29 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
                  "forward": _moe_drops(moe_calls)}
         for name, d in drops.items():
             rows &= ~d["rows"]
-            moe_fields[f"moe_{name}_dropped"] = d["dropped"]
-            moe_fields[f"moe_{name}_max_load"] = (f"{d['max_load']}/"
+            row_fields[f"moe_{name}_dropped"] = d["dropped"]
+            row_fields[f"moe_{name}_max_load"] = (f"{d['max_load']}/"
                                                   f"{d['capacity']}")
-        check(bool(rows.any()), f"{arch}: a batch row that no MoE drop "
-              f"touched, to compare: {drops}")
     del served_moe, moe_calls
+    row_fields["rows_compared"] = f"{int(rows.sum())}/{SERVE_BATCH}"
+    # the api whose served run is held to its forward (and planted with
+    # the fault): the published one, unless drops touched every row
+    held = api
+    if not rows.any():
+        held = build_model(_no_drop(cfg), compute_dtype=torch.float32)
+        with _recording(moe, "apply_moe", every=True) as calls:
+            held_toks, served, _, _ = _serve(held, params, prompts, extras)
+            tf = _teacher_forced(held, params, prompts, held_toks, extras)
+        nodrop = _moe_drops(calls)
+        del calls, held_toks
+        check(nodrop["dropped"] == 0,
+              f"{arch}: nothing drops at the capacity factor "
+              f"{held.cfg.moe.capacity_factor}: {nodrop}")
+        rows = torch.ones(SERVE_BATCH, dtype=torch.bool, device="cuda")
+        row_fields["nodrop_capacity_factor"] = held.cfg.moe.capacity_factor
+        row_fields["nodrop_max_load"] = (f"{nodrop['max_load']}/"
+                                         f"{nodrop['capacity']}")
+        row_fields["nodrop_rows_compared"] = f"{SERVE_BATCH}/{SERVE_BATCH}"
     err = _max_err(served[rows], tf[rows])
     check(_within(served[rows], tf[rows], **tol),
           f"{arch}: served logits within {tol} of the teacher-forced "
@@ -1383,47 +1542,55 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
     logits_absmax = float(tf.abs().max())
     del tf
 
-    # the first and last launch of each kernel against its plain version
+    # the named launches of each kernel against its plain version
     rerun = {}
     for k, calls in zip(kernels, launched):
-        for which, (args, kwargs, out) in (("first", calls[0]),
-                                           ("last", calls[-1])):
+        name = k.wrapper.__name__
+        for which, index in k.rerun:
+            args, kwargs, out = calls[index]
             out = out if isinstance(out, tuple) else (out,)
             with torch.inference_mode():
                 want = k.plain(*args, **kwargs)
             want = want if isinstance(want, tuple) else (want,)
             for got, ref, call_tol in zip(out, want, k.tol):
                 check(_within(got, ref, **call_tol),
-                      f"{arch}: the {which} {k.wrapper.__name__} launch "
-                      f"within {call_tol} of its plain version: max err "
+                      f"{arch}: the {which} {name} launch within "
+                      f"{call_tol} of its plain version: max err "
                       f"{_max_err(got, ref)}")
-                name = k.wrapper.__name__
                 rerun[f"{name}_rerun_max_err"] = max(
                     rerun.get(f"{name}_rerun_max_err", 0.0),
                     _max_err(got, ref))
-            rerun[f"{k.wrapper.__name__}_rerun_{which}"] = "x".join(
-                str(n) for n in args[0].shape)
+            q, k_ = args[0], args[1]
+            rerun[f"{name}_rerun_{which}"] = "x".join(
+                str(n) for n in q.shape) + (
+                f"_kv{k_.shape[1]}" if k_.dim() == 4
+                and k_.shape[1] != q.shape[1] else "")
     del launched
 
     # the same check must fail on a planted fault
-    bad_api = fault(api)
-    bad_toks, bad_served, _, _ = _serve(bad_api, params, prompts)
-    bad_tf = _teacher_forced(api, params, prompts, bad_toks)
+    bad_api = fault(held)
+    bad_toks, bad_served, _, _ = _serve(bad_api, params, prompts, extras)
+    bad_tf = _teacher_forced(held, params, prompts, bad_toks, extras)
     bad_err = _max_err(bad_served[rows], bad_tf[rows])
     check(not _within(bad_served[rows], bad_tf[rows], **tol),
           f"{arch}: a planted fault ({fault.__name__}) fails the served-vs-"
           f"forward check at {tol}: its max err is only {bad_err}")
-    del bad_api, bad_served, bad_tf
+    del bad_api, bad_served, bad_tf, held
 
     decode_ms = statistics.median(ms[1:])
-    index = SERVE_PROMPT + SERVE_GEN - 1    # rewrites the last cache slot
+    # rewrites the last cache slot
+    index = _prefix(cfg) + s_text + SERVE_GEN - 1
     decode = _device_split(lambda: api.decode_step(params, cache,
                                                    toks[:, -1:], index))
     prefill = _device_split(lambda: api.prefill(
-        params, {"tokens": prompts}, cache_len=SERVE_PROMPT + SERVE_GEN))
+        params, dict(extras, tokens=prompts),
+        cache_len=_prefix(cfg) + s_text + SERVE_GEN))
     on_path = {k.wrapper.__name__ for k in kernels}
     say(phase, arch=arch, params=n_params, layers=cfg.num_layers,
-        d_model=cfg.d_model, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        d_model=cfg.d_model, batch=SERVE_BATCH, prompt=prompt,
+        **({"prompt_text": s_text} if s_text != prompt else {}),
+        **{f"{k}_shape": "x".join(str(n) for n in v.shape)
+           for k, v in extras.items()},
         gen=SERVE_GEN,
         **{f"{name}_launches": counts[name] for name in sorted(on_path)},
         other_launches=sum(n for name, n in counts.items()
@@ -1434,20 +1601,19 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None) -> dict:
         decode_step_device_ms=f"{decode['all']:.3f}",
         decode_idle_share=f"{1 - decode['all'] / decode_ms:.3f}",
         **{f"decode_{k}_ms": f"{v:.3f}" for k, v in decode.items()
-           if k != "all"},
+           if k not in ("all", "warm")},
         prefill_device_ms=f"{prefill['all']:.3f}",
         **{f"prefill_{k}_ms": f"{v:.3f}" for k, v in prefill.items()
            if k != "all"},
         peak_gb=f"{peak_gb:.2f}", logits_absmax=f"{logits_absmax:.3g}",
         tol_atol=tol["atol"], logits_max_err_vs_forward=f"{err:.3g}",
-        rows_compared=f"{int(rows.sum())}/{SERVE_BATCH}",
         argmax_decisive=f"{int(decisive.sum())}/{decisive.numel()}",
-        argmax_equal=f"{int(same.sum())}/{same.numel()}", **moe_fields,
+        argmax_equal=f"{int(same.sum())}/{same.numel()}", **row_fields,
         **{key: (f"{v:.3g}" if isinstance(v, float) else v)
            for key, v in rerun.items()},
         planted_fault=fault.__name__,
         planted_max_err_vs_forward=f"{bad_err:.3g}")
-    del params, api, served, cache
+    del params, api, served, cache, extras
     gc.collect()
     torch.cuda.empty_cache()
     return {name: counts[name] for name in on_path}
@@ -1953,7 +2119,7 @@ def main() -> int:
     k3 = dict(module=layers, attr="flash_attention",
               plain=_plain_flash_attention, tol=(TOL_F32,))
     qwen = get_arch_config("qwen3-4b")
-    kernels["flash_attention"]["launches"] = phase_serve(
+    k3_launches = phase_serve(
         "6 serve", qwen,
         [OnPath(flash_attention, launches=qwen.num_layers, **k3)],
         fault=_off_by_one_slot)["flash_attention"]
@@ -1966,14 +2132,39 @@ def main() -> int:
     jamba = dataclasses.replace(get_arch_config("jamba-1.5-large-398b"),
                                 **JAMBA_CUT)
     n_attn = jamba.num_layers // jamba.attn_layer_period
-    kernels["mamba"]["launches"] = phase_serve(
+    served = phase_serve(
         "8 serve", jamba,
         [OnPath(mamba_scan, mamba, "mamba_scan", mamba_scan_ref,
                 (BITWISE, BITWISE),
                 launches=(1 + SERVE_GEN) * (jamba.num_layers - n_attn)),
          OnPath(flash_attention, launches=n_attn, **k3)],
-        fault=_state_dropped("ssm"), moe=hybrid)["mamba_scan"]
+        fault=_state_dropped("ssm"), moe=hybrid)
+    kernels["mamba"]["launches"] = served["mamba_scan"]
+    k3_launches += served["flash_attention"]
     kernels["adagrad"]["launches"] += phase_train()
+    moe30 = dataclasses.replace(get_arch_config("qwen3-moe-30b-a3b"),
+                                **MOE_CUT)
+    k3_launches += phase_serve(
+        "10 serve", moe30,
+        [OnPath(flash_attention, launches=moe30.num_layers, **k3)],
+        fault=_off_by_one_slot, moe=transformer)["flash_attention"]
+    vlm = dataclasses.replace(get_arch_config("internvl2-26b"), **VLM_CUT)
+    k3_launches += phase_serve(
+        "11 serve", vlm,
+        [OnPath(flash_attention, launches=vlm.num_layers, **k3)],
+        fault=_reference_index)["flash_attention"]
+    whisper = get_arch_config("whisper-small")
+    enc, dec = whisper.encoder_layers, whisper.num_layers
+    k3_launches += phase_serve(
+        "12 serve", whisper,
+        # the first launch is the encoder's first, then each decoder layer
+        # launches its self-attention and its cross-attention
+        [OnPath(flash_attention, launches=enc + 2 * dec,
+                rerun=(("first_encoder", 0), ("first_cross", enc + 1),
+                       ("last_cross", -1)), **k3)],
+        fault=_state_dropped("cross_k", "cross_v"),
+        prompt=WHISPER_PROMPT)["flash_attention"]
+    kernels["flash_attention"]["launches"] = k3_launches
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -11,7 +11,9 @@ un-repeated k and v, where the JAX package runs its query-chunked jnp path
 ``differentiable=True``: the torch-op port of that jnp path
 (``_chunked_attend``), which autograd differentiates.  Decode attention
 keeps the JAX package's torch-op equivalent of ``_attend_grouped``.
-Cross-attention comes with the encoder-decoder slice.
+Cross-attention (the encoder-decoder's) runs K3 too over the whole
+decoder sequence, non-causal with Sq != Skv; its decode against the
+cached encoder K/V runs torch ops, as the JAX package's ``_attend``.
 """
 from __future__ import annotations
 
@@ -84,12 +86,37 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _sinusoids(positions, d_model: int):
+    """Rows ``positions`` (an int tensor) of the sinusoidal table:
+    ``sin(pos * freq) | cos(pos * freq)``, f32."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions.float()[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None):
+    """Whisper-style fixed sinusoidal position embedding (S, D), f32."""
+    return _sinusoids(torch.arange(seq_len, device=device), d_model)
+
+
+def sinusoidal_position(index: int, d_model: int, max_len: int, device=None):
+    """Row ``min(index, max_len - 1)`` of ``sinusoidal_positions(max_len,
+    d_model)`` as (1, D), computed alone with the table's products (the
+    decode step's position, without the whole table)."""
+    row = torch.full((1,), min(index, max_len - 1), device=device)
+    return _sinusoids(row, d_model)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
 
-def init_attention(generator, cfg):
+def init_attention(generator, cfg, *, cross: bool = False):
+    """``cross``: a cross-attention block (no qk-norm)."""
     hd = cfg.resolved_head_dim
     dev = init_device(generator)
     p = {
@@ -110,24 +137,30 @@ def init_attention(generator, cfg):
                         ("kv_heads", None))
         p["bv"] = Param(torch.zeros(cfg.num_kv_heads, hd, device=dev),
                         ("kv_heads", None))
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = Param(torch.ones(hd, device=dev), (None,))
         p["k_norm"] = Param(torch.ones(hd, device=dev), (None,))
     return p
 
 
-def _proj_qkv(p, cfg, x, kv_input):
+def _proj_q(p, x):
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dnh->bsnh", kv_input, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dnh->bsnh", kv_input, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
     if "q_norm" in p:
         q = _rms_head(q, p["q_norm"])
+    return q
+
+
+def _proj_qkv(p, cfg, x, kv_input):
+    k = torch.einsum("bsd,dnh->bsnh", kv_input, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", kv_input, p["wv"].to(x.dtype))
+    if "bk" in p:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    if "k_norm" in p:
         k = _rms_head(k, p["k_norm"])
-    return q, k, v
+    return _proj_q(p, x), k, v
 
 
 def _repeat_kv(k, num_heads: int):
@@ -169,8 +202,9 @@ def _attend_grouped(q, k, v, mask, scale: float):
 
 def _chunked_attend(q, k, v, scale, *, causal: bool, window: int):
     """Exact attention streamed over query chunks (bounded scores memory),
-    the port of the JAX package's ``_chunked_attend`` for self-attention
-    with positions ``arange(S)`` on both sides.
+    the port of the JAX package's ``_chunked_attend`` for positions
+    ``arange`` on each side (self-attention, or cross-attention's Sq
+    queries against Skv keys).
 
     With a sliding window, each query chunk attends only to a sliced
     (window + chunk)-sized KV segment, so windowed cost is O(S·(W+C)),
@@ -209,32 +243,44 @@ def _chunked_attend(q, k, v, scale, *, causal: bool, window: int):
 
 
 def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
-              cache=None, cache_index=None, use_rope: bool = True,
-              differentiable: bool = False):
-    """Multi-head GQA self-attention.
+              encoder_out=None, cache=None, cache_index=None,
+              use_rope: bool = True, differentiable: bool = False):
+    """Multi-head GQA attention.
 
     Modes:
-      * full-sequence (train / prefill): ``cache is None``; ``positions``
-        is ``arange(S)`` (the kernel counts query and key positions from
-        0).  Returns (out, (k, v)).  K3 computes it, unless
+      * full-sequence (train / prefill / encoder): ``cache is None``;
+        ``positions`` is ``arange(S)`` (the kernel counts query and key
+        positions from 0).  Returns (out, (k, v)).  K3 computes it, unless
         ``differentiable`` asks for ``_chunked_attend``'s torch ops,
         which autograd differentiates (K3 refuses inputs that require
-        grad, so a training caller that forgets to ask raises).
-      * decode: ``cache = (k, v, kv_pos)`` with k/v (B, S_cache, Kv, hd)
-        and kv_pos (S_cache,) absolute positions (-1 = empty slot); x is
-        (B, 1, D) and ``cache_index`` (an int) the new token's absolute
-        position.  RoPE is applied *before* caching so a ring buffer
-        (sliding window) stays correct.  The new k, v and position are
-        written into the cache tensors in place (the JAX package returns
-        updated copies); the same tensors are returned.
+        grad, so a training caller that forgets to ask raises).  With
+        ``encoder_out`` (B, T, D) it is cross-attention: k and v are
+        projected from ``encoder_out``, non-causal, without RoPE, and the
+        returned (k, v) are the cross K/V a decode step reads.
+      * self-attention decode: ``cache = (k, v, kv_pos)`` with k/v
+        (B, S_cache, Kv, hd) and kv_pos (S_cache,) absolute positions
+        (-1 = empty slot); x is (B, 1, D) and ``cache_index`` (an int) the
+        new token's absolute position.  RoPE is applied *before* caching
+        so a ring buffer (sliding window) stays correct.  The new k, v and
+        position are written into the cache tensors in place (the JAX
+        package returns updated copies); the same tensors are returned.
+      * cross-attention decode: ``cache = (k, v)``, the encoder's K/V of
+        the prefill, read and returned unchanged.
     """
-    if cache is not None and len(cache) == 2:
-        raise NotImplementedError(
-            "cross-attention comes with the encoder-decoder slice "
-            "(ROADMAP.md, Queue 1 item 6)")
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
-    q, k, v = _proj_qkv(p, cfg, x, x)
+
+    if cache is not None and len(cache) == 2:
+        # cross decode: only q is new (the JAX package also projects k and
+        # v from x here, and drops them)
+        ck, cv = cache
+        out = _attend(_proj_q(p, x), _repeat_kv(ck, cfg.num_heads),
+                      _repeat_kv(cv, cfg.num_heads), None, scale)
+        y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+        return shard_act(y, "batch", "seq", None), cache
+
+    is_cross = encoder_out is not None
+    q, k, v = _proj_qkv(p, cfg, x, encoder_out if is_cross else x)
 
     if cache is not None:
         ck, cv, kv_pos = cache
@@ -261,10 +307,12 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     if positions.shape != (x.shape[1],):
         raise ValueError(f"positions must be arange(S) of shape "
                          f"({x.shape[1]},), got {tuple(positions.shape)}")
-    if use_rope:
+    if use_rope and not is_cross:
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if is_cross:
+        causal = False
     q = shard_act(q, "batch", "seq", "heads", None)
     k = shard_act(k, "batch", "seq", "kv_heads", None)
     v = shard_act(v, "batch", "seq", "kv_heads", None)

@@ -12,13 +12,13 @@ The port of ``repro.models.model``.  ``build_model(cfg)`` returns a
   init_cache(batch, cache_len) -> cache tree
   batch_spec(shape)            -> {name: (shape, dtype)} of the inputs
 
-Families ``dense`` (``transformer``), ``ssm`` (``rwkv``) and ``hybrid``
-(``hybrid``: Mamba, attention and MoE) are ported, dispatched on
-``cfg.family`` as the JAX factory does; ``moe`` (the transformer-family
-MoE), ``encdec`` and ``vlm`` raise ``NotImplementedError``.  Training
-(``train_loss``, and ``forward_features(differentiable=True)``) runs the
-``dense`` family; ``ssm`` and ``hybrid`` raise ``NotImplementedError``
-there, since their recurrences run only as forward kernels (ROADMAP.md).
+Every LM family is ported, dispatched on ``cfg.family`` as the JAX
+factory does: ``dense``, ``moe`` and ``vlm`` (``transformer``), ``ssm``
+(``rwkv``), ``hybrid`` (``hybrid``: Mamba, attention and MoE) and
+``encdec`` (``encdec``).  A ``vlm`` batch carries ``patches`` (B, P, D),
+an ``encdec`` batch ``frames`` (B, T_enc, D).  Training (``train_loss``,
+and ``forward_features(differentiable=True)``) runs the ``dense`` family;
+the others raise ``NotImplementedError`` there (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,18 +31,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import hybrid, rwkv, transformer
+from repro_torch.models import encdec, hybrid, rwkv, transformer
 from repro_torch.sharding.spec import values_tree
 from repro_torch.tree import as_tensor, tree_flatten
 
-_LATER = {
-    "moe": "Queue 1 item 6 (the MoE block of transformer.py)",
-    "encdec": "Queue 1 item 6 (encdec.py)",
-    "vlm": "Queue 1 item 6 (the vlm input of transformer.py)",
-}
-#: families whose training forward is not ported: their recurrences run
-#: only as forward kernels (K4, K5)
-_NO_TRAINING = "Queue 1 item 5 (ssm and hybrid training)"
+#: where the training of the families other than ``dense`` comes from
+_NO_TRAINING = ("Queue 1 item 5 (training of the families other than "
+                "dense)")
 
 
 def lm_loss(logits, labels, mask):
@@ -108,18 +103,20 @@ class ModelApi:
     batch_spec: Callable[..., Any]
 
 
-_MODULES = {"dense": transformer, "ssm": rwkv, "hybrid": hybrid}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": rwkv, "hybrid": hybrid, "encdec": encdec}
 
 
 def _module(cfg: ArchConfig):
-    family = cfg.family
-    if family in _LATER:
-        raise NotImplementedError(
-            f"family {family!r} ({cfg.name}) comes with a later slice of "
-            f"the port: ROADMAP.md, {_LATER[family]}")
-    if family not in _MODULES:
-        raise ValueError(f"no LM assembly for family {family!r}")
-    return _MODULES[family]
+    if cfg.family not in _MODULES:
+        raise ValueError(f"no LM assembly for family {cfg.family!r}")
+    return _MODULES[cfg.family]
+
+
+def _text_len(cfg: ArchConfig, seq_len: int) -> int:
+    """The text tokens of a sequence of ``seq_len`` positions (a vlm
+    sequence starts with its ``num_patches`` patch positions)."""
+    return seq_len - cfg.num_patches if cfg.family == "vlm" else seq_len
 
 
 def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
@@ -131,6 +128,13 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
 
     def init(generator):
         return mod.init_model(generator, cfg)
+
+    def _fwd_kwargs(batch):
+        if cfg.family == "vlm":
+            return {"patches": batch["patches"]}
+        if cfg.family == "encdec":
+            return {"frames": batch["frames"]}
+        return {}
 
     def forward_features(params, batch, *, window=None,
                          compute_logits=True, differentiable=False):
@@ -146,7 +150,8 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
             kw = dict(remat=remat, differentiable=True)
         return mod.forward_train(params, cfg, batch["tokens"],
                                  dtype=compute_dtype, window=window,
-                                 compute_logits=compute_logits, **kw)
+                                 compute_logits=compute_logits, **kw,
+                                 **_fwd_kwargs(batch))
 
     def head_logits(params, feats):
         return L.lm_logits(params["head"], params["embed"], cfg, feats)
@@ -157,6 +162,8 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
             _, aux, feats = forward_features(params, batch, window=window,
                                              compute_logits=False,
                                              differentiable=True)
+            if cfg.family == "vlm":      # loss on the text positions only
+                feats = feats[:, cfg.num_patches:]
             head_w = (params["embed"]["table"].T if cfg.tie_embeddings
                       else params["head"]["w"])
             loss = lm_loss_chunked(feats, head_w, batch["labels"],
@@ -164,12 +171,15 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
             return loss + aux, {"loss": loss, "aux": aux}
         logits, aux, _ = forward_features(params, batch, window=window,
                                           differentiable=True)
+        if cfg.family == "vlm":          # loss on the text positions only
+            logits = logits[:, cfg.num_patches:]
         loss = lm_loss(logits, batch["labels"], batch["mask"])
         return loss + aux, {"loss": loss, "aux": aux}
 
     def prefill(params, batch, *, window=None, cache_len=None):
         return mod.prefill(params, cfg, batch["tokens"], dtype=compute_dtype,
-                           window=window, cache_len=cache_len)
+                           window=window, cache_len=cache_len,
+                           **_fwd_kwargs(batch))
 
     def decode_step(params, cache, token, index, *, window=None):
         return mod.decode_step(params, cfg, cache, token, index,
@@ -182,10 +192,17 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
 
     def batch_spec(shape: InputShape, *, global_batch=None):
         b = global_batch or shape.global_batch
-        spec = {"tokens": ((b, shape.seq_len), torch.int32)}
+        s_text = _text_len(cfg, shape.seq_len)
+        spec = {"tokens": ((b, s_text), torch.int32)}
         if shape.kind == "train":
-            spec["labels"] = ((b, shape.seq_len), torch.int32)
-            spec["mask"] = ((b, shape.seq_len), torch.float32)
+            spec["labels"] = ((b, s_text), torch.int32)
+            spec["mask"] = ((b, s_text), torch.float32)
+        if cfg.family == "vlm":
+            spec["patches"] = ((b, cfg.num_patches, cfg.d_model),
+                               torch.float32)
+        if cfg.family == "encdec":
+            spec["frames"] = ((b, cfg.encoder_seq_len, cfg.d_model),
+                              torch.float32)
         return spec
 
     return ModelApi(cfg=cfg, init=init, train_loss=train_loss,

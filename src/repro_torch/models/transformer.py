@@ -1,10 +1,15 @@
-"""Decoder-only transformer assembly, the dense family.
+"""Decoder-only transformer assembly: the dense, MoE and vlm families.
 
-The port of ``repro.models.transformer`` for ``family="dense"``.  Layer
-parameters keep the JAX package's *stacked* layout (a leading ``layers``
-axis on every leaf of ``params["blocks"]``), so a JAX tree carries across
-leaf for leaf; the forward pass loops over the stack in Python where the
-JAX package scans.  A MoE block or a ``vlm`` input is refused.
+The port of ``repro.models.transformer``.  Layer parameters keep the JAX
+package's *stacked* layout (a leading ``layers`` axis on every leaf of
+``params["blocks"]``), so a JAX tree carries across leaf for leaf; the
+forward pass loops over the stack in Python where the JAX package scans.
+A MoE model (``cfg.is_moe``) has the MoE FFN of ``models/moe.py`` in every
+block, called as this module's ``apply_moe``; decode runs it at capacity
+factor ``max(2.0, cfg.moe.capacity_factor)``, as the JAX package does.  A
+``vlm`` model prepends its (B, P, D) patch embeddings, projected by
+``patch_proj``, to the token embeddings, so its positions, logits and
+cache cover P + S.
 
 Modes:
   * ``forward_train``: full sequence, returns (logits, aux_loss, features);
@@ -22,18 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.sharding.spec import Param
+from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding.spec import Param, param
 from repro_torch.tree import tree_flatten, tree_map
-
-_NOT_PORTED = ("{} comes with a later slice of the port (ROADMAP.md, "
-               "Queue 1 item 6)")
-
-
-def _check_family(cfg):
-    if cfg.is_moe:
-        raise NotImplementedError(_NOT_PORTED.format("the MoE block"))
-    if cfg.family == "vlm":
-        raise NotImplementedError(_NOT_PORTED.format("the vlm input"))
 
 
 def stack_layer_axes(tree):
@@ -71,26 +67,36 @@ def layer(blocks, i: int):
 # ---------------------------------------------------------------------------
 
 
-def init_block(generator, cfg):
-    _check_family(cfg)
-    return {
+def init_block(generator, cfg, *, moe_block: bool):
+    p = {
         "attn_norm": L.init_norm(cfg, generator=generator),
         "attn": L.init_attention(generator, cfg),
         "ffn_norm": L.init_norm(cfg, generator=generator),
-        "mlp": L.init_mlp(generator, cfg),
     }
+    if moe_block:
+        p["moe"] = init_moe(generator, cfg)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg)
+    return p
 
 
 def init_model(generator, cfg):
-    """-> Param tree of the dense decoder on ``generator``'s device (the
-    meta device for ``None``)."""
-    return {
+    """-> Param tree of the dense, MoE or vlm decoder on ``generator``'s
+    device (the meta device for ``None``)."""
+    p = {
         "embed": L.init_embedding(generator, cfg),
-        "blocks": stack_layers(lambda: init_block(generator, cfg),
-                               cfg.num_layers),
+        "blocks": stack_layers(
+            lambda: init_block(generator, cfg, moe_block=cfg.is_moe),
+            cfg.num_layers),
         "final_norm": L.init_norm(cfg, generator=generator),
         "head": L.init_lm_head(generator, cfg),
     }
+    if cfg.family == "vlm":
+        # the projector stub: patch embeddings arrive pre-extracted, and
+        # one linear maps them into d_model
+        p["patch_proj"] = {"w": param(generator, (cfg.d_model, cfg.d_model),
+                                      ("embed", None), scale=0.02)}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -100,19 +106,29 @@ def init_model(generator, cfg):
 
 def _apply_block(bp, cfg, x, *, positions, window, cache=None,
                  cache_index=None, differentiable=False):
+    """-> (x, aux_loss (None without MoE), new_cache)."""
     h, new_cache = L.attention(
         bp["attn"], cfg, L.apply_norm(bp["attn_norm"], cfg, x),
         positions=positions, window=window, cache=cache,
         cache_index=cache_index, differentiable=differentiable)
     x = x + h
     hn = L.apply_norm(bp["ffn_norm"], cfg, x)
-    return x + L.apply_mlp(bp["mlp"], cfg, hn), new_cache
+    if "moe" in bp:
+        cf = (max(2.0, cfg.moe.capacity_factor) if cache is not None
+              else None)
+        h, aux = apply_moe(bp["moe"], cfg, hn, capacity_factor=cf)
+    else:
+        h, aux = L.apply_mlp(bp["mlp"], cfg, hn), None
+    return x + h, aux, new_cache
 
 
 def _embed_inputs(params, cfg, tokens, patches, dtype):
-    if patches is not None or cfg.family == "vlm":
-        raise NotImplementedError(_NOT_PORTED.format("the vlm input"))
-    return L.embed_tokens(params["embed"], cfg, tokens, dtype)
+    x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
+    if cfg.family == "vlm":
+        pe = torch.einsum("bpd,de->bpe", patches.to(dtype),
+                          params["patch_proj"]["w"].to(dtype))
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +139,8 @@ def _embed_inputs(params, cfg, tokens, patches, dtype):
 def forward_train(params, cfg, tokens, *, patches=None,
                   dtype=torch.bfloat16, window=None, remat=True,
                   compute_logits=True, differentiable=False):
-    """tokens: (B, S).  Returns (logits, aux_loss, features): ``features``
+    """tokens: (B, S_text); vlm: ``patches`` (B, P, D) prepended, so
+    S = P + S_text.  Returns (logits, aux_loss, features): ``features``
     are the pre-head hidden states (the paper's split point).
 
     ``differentiable``: attention in torch ops, for training (K3 refuses
@@ -136,18 +153,21 @@ def forward_train(params, cfg, tokens, *, patches=None,
 
     def body(bp, x):
         return _apply_block(bp, cfg, x, positions=positions, window=window,
-                            differentiable=differentiable)[0]
+                            differentiable=differentiable)[:2]
 
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(body, bp, x, use_reentrant=False)
+            x, a = checkpoint(body, bp, x, use_reentrant=False)
         else:
-            x = body(bp, x)
+            x, a = body(bp, x)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
               if compute_logits else None)
-    return logits, torch.zeros((), device=x.device), x
+    return logits, aux, x
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window=None,
@@ -170,7 +190,8 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     """Full-sequence forward that also builds the KV cache.
 
     Returns (last_logits (B,1,V), cache).  The cache covers positions
-    [0, S) (ring-compressed to the window if one is set)."""
+    [0, S) (ring-compressed to the window if one is set); for vlm S counts
+    the P patch positions before the text."""
     window = cfg.sliding_window if window is None else window
     x = _embed_inputs(params, cfg, tokens, patches, dtype)
     b, s, _ = x.shape
@@ -185,8 +206,8 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     else:
         keep, slots = positions, torch.arange(s, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = _apply_block(layer(params["blocks"], i), cfg, x,
-                                 positions=positions, window=window)
+        x, _, (k, v) = _apply_block(layer(params["blocks"], i), cfg, x,
+                                    positions=positions, window=window)
         cache["k"][i][:, slots] = k[:, s - len(keep):].to(dtype)
         cache["v"][i][:, slots] = v[:, s - len(keep):].to(dtype)
         cache["pos"][i][slots] = keep
@@ -197,14 +218,15 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
 
 def decode_step(params, cfg, cache, token, index: int, *,
                 dtype=torch.bfloat16, window=None):
-    """token: (B, 1) int; index: the token's absolute position (an int).
+    """token: (B, 1) int; index: the token's absolute position (an int;
+    for vlm it counts the P patch positions).
 
     Returns (logits (B,1,V), cache): the cache is updated in place."""
     window = cfg.sliding_window if window is None else window
     x = L.embed_tokens(params["embed"], cfg, token, dtype)
     positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
-        x, _ = _apply_block(
+        x, _, _ = _apply_block(
             layer(params["blocks"], i), cfg, x, positions=positions,
             window=window,
             cache=(cache["k"][i], cache["v"][i], cache["pos"][i]),

@@ -49,7 +49,7 @@ SLICE_MODULES = (
     "kernels.flash_attention.ops", "kernels.flash_attention.ref",
     "kernels.rwkv6.ops", "kernels.rwkv6.ref", "kernels.mamba.ops",
     "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid",
-    "launch.train", "launch.steps")
+    "launch.train", "launch.steps", "models.encdec")
 
 #: The modules the port carries as byte copies (the only change is
 #: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
@@ -144,7 +144,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch,
 
 def _state_makers():
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import hybrid, mamba, rwkv, transformer
+    from repro_torch.models import encdec, hybrid, mamba, rwkv, transformer
 
     dense = get_smoke_config("qwen3-4b")
     ssm = get_smoke_config("rwkv6-1.6b")
@@ -159,13 +159,16 @@ def _state_makers():
                                                             **kw),
         "mamba.mamba_init_state": lambda **kw: mamba.mamba_init_state(
             jamba, 1, **kw),
+        "encdec.init_cache": lambda **kw: encdec.init_cache(
+            get_smoke_config("whisper-small"), 1, 8, **kw),
     }
 
 
 @pytest.mark.parametrize("maker", ["transformer.init_cache",
                                    "rwkv.init_cache", "rwkv.rwkv_init_state",
                                    "hybrid.init_cache",
-                                   "mamba.mamba_init_state"])
+                                   "mamba.mamba_init_state",
+                                   "encdec.init_cache"])
 def test_cache_and_state_makers_default_to_cuda(monkeypatch, maker):
     """Each asks for ``cuda`` unless told otherwise: on a host without CUDA
     it raises, and with ``device="cpu"`` it makes its tensors there."""

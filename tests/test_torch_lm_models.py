@@ -27,7 +27,8 @@ from repro.models.model import build_model as jax_build_model
 from repro.models.model import count_params_analytic as jax_count_params
 from repro.models.model import lm_loss as jax_lm_loss
 from repro.sharding.spec import values_tree as jax_values_tree
-from repro_torch.configs import get_arch_config, get_smoke_config
+from repro_torch.configs import INPUT_SHAPES, get_arch_config, \
+    get_smoke_config
 from repro_torch.launch.serve import generate
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
@@ -314,7 +315,6 @@ def test_lm_loss_and_batch_spec_match_jax():
     _close(lm_loss(*map(torch.from_numpy, (logits, labels, mask))),
            jax_lm_loss(*map(jnp.asarray, (logits, labels, mask))))
     from repro.configs import INPUT_SHAPES as JAX_SHAPES
-    from repro_torch.configs import INPUT_SHAPES
     want = jax_build_model(jax_smoke_config("qwen3-4b")).batch_spec(
         JAX_SHAPES["train_4k"], global_batch=8)
     got = build_model(get_smoke_config("qwen3-4b")).batch_spec(
@@ -352,8 +352,19 @@ def test_jamba_cut_served_on_one_card_counts_as_jax():
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-small",
                                   "internvl2-26b"])
 def test_families_of_later_slices_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(get_smoke_config(arch))
+    """These families are served (``tests/test_torch_zoo.py``); their
+    training forward comes with ROADMAP.md's Queue 1 item 5."""
+    cfg = get_smoke_config(arch)
+    api = build_model(cfg)
+    spec = api.batch_spec(dataclasses.replace(
+        INPUT_SHAPES["train_4k"], seq_len=cfg.num_patches + 4),
+        global_batch=1)
+    batch = {k: torch.zeros(shape, dtype=dtype)
+             for k, (shape, dtype) in spec.items()}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        api.forward_features(None, batch, differentiable=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        api.train_loss(None, batch)
 
 
 # --- bf16, the default compute dtype -----------------------------------------
