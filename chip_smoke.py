@@ -96,11 +96,36 @@ Phases, one line each:
      the prefill; the first encoder launch (Skv 1,500, non-causal), the
      first cross launch (Sq 64, Skv 1,500) and the last re-run through the
      plain version; its planted fault zeroes the cross K/V the prefill
-     hands over.
+     hands over;
+ 13. training the other five LM families (qwen3-moe-30b-a3b, internvl2-26b,
+     whisper-small, rwkv6-1.6b, jamba-1.5-large-398b; f32 unless said,
+     ``split_concurrent``, K2 on every step): a. each smoke config, batch
+     2, text sequence 512 (two 256-step chunks of the recurrent scans), 3
+     steps on the card and on the host CPU from one init, held as 9c
+     (every loss and state leaf within ``TRAIN_TOL``, every update within
+     1e-3 of its scale or one f32 spacing, the ``ZERO_GRAD`` leaves
+     unmoved), and a planted fault per family that must fail (``ZOO_FAULTS``:
+     the aux loss dropped, the loss over the patch positions too, the
+     encoder's output detached before the cross-attention, the scan's
+     state reset at the chunk boundary); b. each at every published width
+     (``ZOO_FULL``: qwen3-moe-30b-a3b and internvl2-26b cut to 4 layers,
+     whisper-small and rwkv6-1.6b whole, the Jamba cut with both FFNs
+     dense), batch 4, one family at a time: the loss's mean over the last
+     3 steps below the first 3's, K2's launches as
+     ``adagrad_update_leaves`` makes them (one a tree a step) with the
+     first and last re-run bitwise, no call of K3, K4 or K5, the step's
+     ms, tokens/s and peak memory, and one step traced (CUDA activity
+     only) and split into matrix products, K2 and the rest; c. qwen1.5-0.5b
+     at bf16 through ``train_loop`` as 9a (20 steps, K2 twice a step, the
+     loss falling, params and accumulators f32), then one bf16 ``dp_full``
+     step of the dense, ssm and encdec smoke configs on the card against
+     the host CPU within the CPU tests' bf16 training bars.
 
 The launch counts of each kernel are set to 0 just before the path that
-runs it and read just after.  The line before the last is one JSON object
-with every kernel's numbers; the last line is
+runs it and read just after.  The card's ``nvidia-smi`` name and power
+limit line is printed in phase 1 and again before the last two lines; the
+line before the last is one JSON object with every kernel's numbers; the
+last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a host without CUDA.
 """
@@ -266,18 +291,23 @@ def phase_environment() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     say("1 environment", python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
         device=repr(dev["kind"]), capability=f"{cap[0]}.{cap[1]}",
         count=dev["count"], tf32="off", cudnn_deterministic="on")
-    print(smi.splitlines()[0], flush=True)
+    print(_smi(), flush=True)
     return dev
+
+
+def _smi() -> str:
+    """The card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 # --- 3. kernels against their plain versions ---------------------------------
@@ -1734,25 +1764,21 @@ def _traced_halves(fn) -> tuple:
     return halves, others
 
 
-def _plain_adagrad_update(counter, ps, gs, accs, lr, beta, weight_decay):
-    """The plain version of K2's launch (``adagrad.ops._update``, which the
-    wrapper calls positionally): ``adagrad_ref`` leaf by leaf."""
-    outs = [adagrad_ref(p, g, a, lr=lr, beta=beta, weight_decay=weight_decay)
-            for p, g, a in zip(ps, gs, accs)]
-    return [o[0] for o in outs], [o[1] for o in outs]
-
-
 def _k2_rerun(call, which: str) -> int:
-    """A recorded K2 launch against its plain version on the same tensors,
-    bitwise; returns its leaves."""
-    args, kwargs, (p_out, acc_out) = call
-    want_p, want_acc = _plain_adagrad_update(*args, **kwargs)
-    torch.cuda.synchronize()
-    for got, want in zip(p_out + acc_out, want_p + want_acc):
-        check(got.dtype == want.dtype and torch.equal(got, want),
-              f"train: the {which} K2 launch bitwise equal to its plain "
-              f"version: max err {_max_err(got, want)}")
-    return len(args[1])
+    """A recorded K2 launch (``adagrad.ops._update``, which the wrapper
+    calls positionally) against its plain version, ``adagrad_ref``, on the
+    same tensors, bitwise, one leaf at a time (so the re-run holds one
+    leaf's outputs, not the whole tree's); returns its leaves."""
+    (_, ps, gs, accs, lr, beta, weight_decay), _, (p_out, acc_out) = call
+    for p, g, a, got_p, got_acc in zip(ps, gs, accs, p_out, acc_out):
+        want = adagrad_ref(p, g, a, lr=lr, beta=beta,
+                           weight_decay=weight_decay)
+        for got, w in zip((got_p, got_acc), want):
+            check(got.dtype == w.dtype and torch.equal(got, w),
+                  f"train: the {which} K2 launch bitwise equal to its plain "
+                  f"version: max err {_max_err(got, w)}")
+        del want
+    return len(ps)
 
 
 def _cuda_batches(rng, n: int, batch: int, seq: int, vocab: int,
@@ -1803,19 +1829,43 @@ def _split_concurrent_run(api, run, params, batches, fault=False) -> tuple:
     return torch.stack(losses), (first, state)
 
 
-def _update_gap(got, want) -> tuple:
+def _update_gap(got, want, *, zero=(), spacing=False) -> tuple:
     """``got``, ``want``: (initial, final) states.  (Each trained leaf's
     change since the initial state, and each accumulator, within 1e-3 of
     ``want``'s largest magnitude with rtol 1e-3 beside it; the largest
     gap over that magnitude).  An update is far smaller than
-    ``TRAIN_TOL``'s atol, which alone would pass one of the wrong size."""
+    ``TRAIN_TOL``'s atol, which alone would pass one of the wrong size.
+
+    ``spacing``: the bar is at least one f32 spacing at the leaf's largest
+    magnitude, the least difference two f32 params can show (a Mamba
+    ``dt_b`` sits at -4.6, where the spacing is 4.8e-7, and changes by
+    ~1.5e-4 a step).  ``zero``: the last keys of leaves whose gradient is
+    zero in exact arithmetic (``ZERO_GRAD``); each must change on both
+    sides by less than 1e-6 of the largest change, and is left out of the
+    gap."""
+    from repro_torch.models.model import _paths
+
     ok, worst = True, 0.0
     for field in ("params", "head", "opt_state", "head_opt_state"):
-        for g0, g1, w0, w1 in zip(*(tree_leaves(getattr(s, field))
-                                    for s in (*got, *want))):
-            dg, dw = (g1 - g0).cpu(), (w1 - w0).cpu()
+        leaves, tdef = tree_flatten(getattr(got[0], field))
+        rows = []
+        for path, g0, g1, w0, w1 in zip(_paths(tdef), leaves, *(
+                tree_leaves(getattr(s, field))
+                for s in (got[1], *want))):
+            rows.append((path.rsplit("/", 1)[-1] in zero,
+                         (g1 - g0).cpu(), (w1 - w0).cpu(),
+                         float(w1.abs().max()) if w1.numel() else 0.0))
+        top = max((float(dw.abs().max()) for _, _, dw, _ in rows
+                   if dw.numel()), default=0.0)
+        for is_zero, dg, dw, big in rows:
             scale, gap = float(dw.abs().max()), _max_err(dg, dw)
-            ok = ok and _within(dg, dw, atol=1e-3 * scale, rtol=1e-3)
+            if is_zero:
+                ok = ok and max(scale, float(dg.abs().max())) < 1e-6 * top
+                continue
+            atol = 1e-3 * scale
+            if spacing:
+                atol = max(atol, float(np.spacing(np.float32(big))))
+            ok = ok and _within(dg, dw, atol=atol, rtol=1e-3)
             worst = max(worst, gap / scale if scale else
                         (float("inf") if gap else 0.0))
     return ok, worst
@@ -2066,6 +2116,497 @@ def phase_train() -> int:
     return launches
 
 
+# --- 13. training the other LM families -------------------------------------
+
+#: the families phase 13 trains (one config each) and each one's planted
+#: fault in the card-vs-CPU check (13a)
+ZOO_FAULTS = {"qwen3-moe-30b-a3b": "aux_loss_dropped",
+              "internvl2-26b": "loss_over_the_patch_positions_too",
+              "whisper-small": "enc_out_detached_before_cross_attention",
+              "rwkv6-1.6b": "scan_carry_reset_at_the_chunk_boundary",
+              "jamba-1.5-large-398b":
+                  "scan_carry_reset_at_the_chunk_boundary"}
+#: a: the smoke configs on the card and on the host CPU: batch, text
+#: sequence (two 256-step chunks of the recurrent scans), split_concurrent
+#: steps, and the CPU parity tests' lr
+ZOO_SMOKE_BATCH, ZOO_SMOKE_SEQ, ZOO_SMOKE_STEPS, ZOO_SMOKE_LR = 2, 512, 3, 0.05
+#: leaves whose gradient is zero in exact arithmetic
+#: (``tests/test_torch_train_zoo.py::ZERO_GRAD``): without RoPE a key
+#: bias shifts every score of a query's row alike
+ZERO_GRAD = {"whisper-small": ("bk",)}
+#: b: each family at every published width, one at a time: (arch, config
+#: changes, the cuts (``reduced``), batch, text sequence, lr, steps).  The
+#: depth cuts keep f32 params, gradients and accumulators (12 bytes a
+#: param) and the update's new params and accumulators under ~70 GB.  At
+#: β 1 a step moves a param by ~lr·g, so each row takes the lr at which
+#: its loss fell in the fewest steps without a spike, found by
+#: ``tools/torch_train_zoo_lr.py`` (PERF.md): whisper-small 3 (phase 9's
+#: ``TRAIN_LR``) in 8 steps; rwkv6-1.6b and the Jamba cut 1 in 6 and 8 (3
+#: spiked); qwen3-moe-30b-a3b 1 in 30 (its loss moved within its noise in
+#: 8 steps at every lr from 0.1 to 3; 2 and 3 diverged within 30);
+#: internvl2-26b 0.2 in 150 (0.5 and above diverged, 0.3 rose over 150
+#: steps; at 0.2 its means over 15 steps fell from 11.940 to 11.911).
+ZOO_FULL = (
+    ("qwen3-moe-30b-a3b", dict(num_layers=4), "depth_48_to_4", 4, 512, 1.0,
+     30),
+    ("internvl2-26b", dict(num_layers=4),
+     "depth_48_to_4,256_patches_and_256_text_tokens", 4, 256, 0.2, 150),
+    ("whisper-small", {}, "none:1500_frames,decoder_S_448_its_context", 4,
+     448, TRAIN_LR, 8),
+    ("rwkv6-1.6b", {}, "none", 4, 512, 1.0, 6),
+    ("jamba-1.5-large-398b", dict(JAMBA_CUT, moe_layer_period=4),
+     "depth_72_to_2:one_period_Mamba_then_64:8_attention,"
+     "moe_layer_period_2_to_4:both_FFNs_dense", 4, 512, 1.0, 8),
+)
+#: b: the first ZOO_FULL_WARM steps are left out of the step-time median;
+#: the loss's mean over the last 3 steps must be below its first 3's
+ZOO_FULL_WARM = 2
+#: c: the families without a router, card against host CPU at bf16: one
+#: dp_full step at the CPU tests' size and lr, held to their bf16 training
+#: bars (``tests/test_torch_train_paths.py::BF16_TRAIN_TOL``: twice the
+#: largest gap measured between the two packages; loss, and each update
+#: and accumulator as a fraction of its leaf's largest magnitude)
+ZOO_BF16 = ("qwen3-4b", "rwkv6-1.6b", "whisper-small")
+ZOO_BF16_BATCH, ZOO_BF16_SEQ = 4, 32
+BF16_TRAIN_TOL = {"loss": 0.0103, "update": 0.103, "accumulator": 0.203}
+
+
+def _zoo_batches(cfg, n: int, batch: int, seq: int, seed: int = 0) -> list:
+    """``n`` numpy batches: ``make_lm_batch`` tokens, and a vlm's patches
+    or an encdec's frames from normal(0, 0.02), from one generator."""
+    from repro_torch.data import make_lm_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = make_lm_batch(rng, batch, seq, cfg.vocab_size)
+        if cfg.family == "vlm":
+            b["patches"] = rng.normal(0, 0.02, (
+                batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            b["frames"] = rng.normal(0, 0.02, (
+                batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _on(batches, device) -> list:
+    return [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            for b in batches]
+
+
+def _reset_carry(chunk):
+    """A scan chunk (``rwkv._wkv_chunk``, ``mamba._scan_chunk``: the state
+    is the last argument) that starts from a zero state."""
+    def run(*args):
+        return chunk(*args[:-1], torch.zeros_like(args[-1]))
+    return run
+
+
+def _without_aux(apply_moe):
+    def run(*args, **kwargs):
+        y, aux = apply_moe(*args, **kwargs)
+        return y, aux * 0
+    return run
+
+
+def _over_patches(lm_loss):
+    """``lm_loss`` over every position: label 0 and mask 1 at the patch
+    positions before the text."""
+    def run(logits, labels, mask):
+        extra = logits.shape[1] - labels.shape[1]
+        pad = torch.nn.functional.pad
+        return lm_loss(logits, pad(labels, (extra, 0)),
+                       pad(mask, (extra, 0), value=1.0))
+    return run
+
+
+def _detached_encoder(dec_block):
+    def run(bp, cfg, x, enc_out, **kwargs):
+        return dec_block(bp, cfg, x, enc_out.detach(), **kwargs)
+    return run
+
+
+@contextlib.contextmanager
+def _zoo_fault(arch: str):
+    """Within the block, the planted fault ``ZOO_FAULTS[arch]``."""
+    from repro_torch.core import split_parallel
+    from repro_torch.models import encdec
+
+    with contextlib.ExitStack() as stack:
+        if arch == "rwkv6-1.6b":
+            stack.enter_context(_patched(rwkv, "_wkv_chunk", _reset_carry))
+        elif arch == "jamba-1.5-large-398b":
+            stack.enter_context(_patched(mamba, "_scan_chunk", _reset_carry))
+        elif arch == "qwen3-moe-30b-a3b":
+            stack.enter_context(_patched(transformer, "apply_moe",
+                                         _without_aux))
+        elif arch == "internvl2-26b":
+            stack.enter_context(_patched(split_parallel, "_text_logits",
+                                         lambda f: lambda api, x: x))
+            stack.enter_context(_patched(split_parallel, "lm_loss",
+                                         _over_patches))
+        else:
+            stack.enter_context(_patched(encdec, "_dec_block",
+                                         _detached_encoder))
+        yield
+
+
+def _zoo_card_vs_cpu(arch: str) -> None:
+    """13a for one family (the module docstring)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.spec import values_tree
+    from repro_torch.tree import tree_map
+
+    run = RunConfig(arch=arch, strategy="split_concurrent",
+                    learning_rate=ZOO_SMOKE_LR, compute_dtype="float32",
+                    seed=0)
+    cfg = dataclasses.replace(get_smoke_config(arch), tie_embeddings=False)
+    api = build_model(cfg, compute_dtype=torch.float32, remat=run.remat)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(run.seed)
+    params = values_tree(api.init(gen))
+    host = tree_map(lambda x: x.cpu(), params)
+    batches = _zoo_batches(cfg, ZOO_SMOKE_STEPS, ZOO_SMOKE_BATCH,
+                           ZOO_SMOKE_SEQ, run.seed)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_states = _split_concurrent_run(api, run, host,
+                                                   _on(batches, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    results = {}
+    for name in ("card", "planted"):
+        with (_zoo_fault(arch) if name == "planted"
+              else contextlib.nullcontext()):
+            losses_c, states_c = _split_concurrent_run(
+                api, run, params, _on(batches, "cuda"))
+        ok_state, gap_state = _state_gap(states_c[1], cpu_states[1])
+        ok_update, gap_update = _update_gap(
+            states_c, cpu_states, zero=ZERO_GRAD.get(arch, ()),
+            spacing=True)
+        ok_loss = _within(losses_c.cpu(), cpu_losses, **TRAIN_TOL)
+        results[name] = (ok_state and ok_update and ok_loss,
+                         max(gap_state, _max_err(losses_c.cpu(), cpu_losses)),
+                         gap_update)
+        del states_c
+    check(results["card"][0], f"train zoo: {arch} (smoke, S "
+          f"{ZOO_SMOKE_SEQ}) {ZOO_SMOKE_STEPS} split_concurrent steps on the "
+          f"card within {TRAIN_TOL} of the host CPU's, every loss and state "
+          f"leaf, every update within 1e-3 of its scale: max gap "
+          f"{results['card'][1]}, update gap {results['card'][2]}")
+    check(not results["planted"][0], f"train zoo: {arch}'s planted fault "
+          f"({ZOO_FAULTS[arch]}) fails the card-vs-CPU check: max gap only "
+          f"{results['planted'][1]}, update gap {results['planted'][2]}")
+    say("13a train zoo card vs cpu", arch=arch, family=cfg.family,
+        layers=cfg.num_layers, d_model=cfg.d_model, batch=ZOO_SMOKE_BATCH,
+        seq=ZOO_SMOKE_SEQ, steps=ZOO_SMOKE_STEPS, lr=ZOO_SMOKE_LR,
+        losses_cpu=",".join(f"{float(x):.6f}" for x in cpu_losses),
+        max_gap_vs_cpu=f"{results['card'][1]:.3g}",
+        update_gap_of_scale=f"{results['card'][2]:.3g}",
+        tol=f"atol={TRAIN_TOL['atol']},rtol={TRAIN_TOL['rtol']}",
+        planted_fault=ZOO_FAULTS[arch],
+        planted_max_gap_vs_cpu=f"{results['planted'][1]:.3g}",
+        planted_update_gap_of_scale=f"{results['planted'][2]:.3g}",
+        cpu_run_s=f"{cpu_s:.3f}")
+
+
+def _k2_launches_a_step(*trees) -> int:
+    """What ``adagrad_update_leaves`` launches for an update of each tree
+    (gradients in the params' dtypes): one launch per (p, g) dtype pair
+    per ``MAX_LEAVES`` non-empty leaves."""
+    total = 0
+    for tree in trees:
+        pairs: dict = {}
+        for p in tree_leaves(tree):
+            if p.numel():
+                pairs[p.dtype] = pairs.get(p.dtype, 0) + 1
+        total += sum(-(-n // MAX_LEAVES) for n in pairs.values())
+    return total
+
+
+def _traced_device_split(fn) -> tuple:
+    """One call of ``fn`` traced (CUDA activity only): the device ms of its
+    kernels split into the repository's kernels, matrix products and the
+    rest, and the kernels it ran.  The trace's events are read as the
+    profiler keeps them (``kineto_results``), not parsed into its
+    ``FunctionEvent`` objects, which for a step of ~10^5 kernels (the
+    recurrent families' step loops) would take minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"repo_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    others: dict = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        name, ms = e.name(), e.duration_ns() / 1e6
+        part = _part(name)
+        split[part] += ms
+        n += 1
+        if part == "other":
+            label = _kernel_label(name)
+            others[label] = others.get(label, 0.0) + ms
+    check(split["matmul"] > 0 and split["repo_kernels"] > 0,
+          f"the profiler traced the step's matrix products and K2: {split}")
+    return split, others, n
+
+
+def _zoo_full(arch: str, changes: dict, reduced: str, batch: int, seq: int,
+              lr: float, steps: int, beta: float = 1.0) -> int:
+    """13b for one family (the module docstring), with AdaGrad's ``lr``
+    and ``beta`` for ``steps`` steps; returns K2's launches."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.split_parallel import (init_prev_features,
+                                                 make_train_step,
+                                                 merge_params, split_params)
+    from repro_torch.kernels.adagrad import ops as k2_ops
+    from repro_torch.models.model import build_model, count_params_analytic
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding.spec import values_tree
+
+    run = RunConfig(arch=arch, strategy="split_concurrent", learning_rate=lr,
+                    adagrad_beta=beta, compute_dtype="float32", seed=0)
+    cfg = dataclasses.replace(get_arch_config(arch), tie_embeddings=False,
+                              **changes)
+    api = build_model(cfg, compute_dtype=torch.float32, remat=run.remat)
+    opt = get_optimizer("adagrad", lr, adagrad_beta=run.adagrad_beta,
+                        weight_decay=run.weight_decay, use_kernel=True)
+    init, step = make_train_step(api, opt, strategy=run.strategy,
+                                 head_sync_period=run.head_sync_period)
+    batches = _on(_zoo_batches(cfg, steps + 1, batch, seq, run.seed),
+                  "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(run.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_prev_features(init(params=values_tree(api.init(gen))), api,
+                               batches[0], dtype=torch.float32)
+    n_params = sum(x.numel() for x in tree_leaves(
+        merge_params(state.params, state.head)))
+    check(n_params == count_params_analytic(cfg),
+          f"train zoo: {arch} has {n_params} params (analytic: "
+          f"{count_params_analytic(cfg)})")
+    per_step = _k2_launches_a_step(state.params, state.head)
+    losses, secs = [], []
+    with contextlib.ExitStack() as stack:
+        k2_calls = stack.enter_context(_recording(k2_ops, "_update"))
+        stray = [stack.enter_context(_recording(module, attr, every=True))
+                 for module, attr in ((layers, "flash_attention"),
+                                      (rwkv, "wkv"), (mamba, "mamba_scan"))]
+        _zero_counts()
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches[:steps]):
+            if i == ZOO_FULL_WARM:
+                torch.cuda.reset_peak_memory_stats()
+            (state, metrics), took = _synced(step, state, b)
+            secs.append(took)
+            losses.append(float(metrics["loss"]))
+            if i == 0:        # the first launch, checked and let go
+                first_leaves = _k2_rerun(k2_calls[0], "first")
+                k2_calls[0] = None
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last_leaves = _k2_rerun(k2_calls[-1], "last")
+    del k2_calls
+    launches = counts["adagrad_update_leaves"]
+    backbone, head = split_params(values_tree(api.init(None)))
+    n_leaves = (len(tree_leaves(backbone)), len(tree_leaves(head)))
+    check(launches == per_step * steps and counts["adagrad_update"] == 0,
+          f"train zoo: {arch}: K2 launched {per_step} times a step "
+          f"(backbone and head trees of {n_leaves} f32 leaves): {launches} "
+          f"in {steps} steps, {counts}")
+    check((first_leaves, last_leaves) == n_leaves,
+          f"train zoo: {arch}: the first and last K2 launches took "
+          f"{first_leaves} and {last_leaves} leaves, the trees {n_leaves}")
+    check(not any(stray) and all(
+        counts[w.__name__] == 0 for w in (flash_attention, wkv, mamba_scan,
+                                          server_step_update)),
+          f"train zoo: {arch}: no call of K3, K4 or K5: "
+          f"{[len(c) for c in stray]} calls, {counts}")
+    del stray
+    first3, last3 = np.mean(losses[:3]), np.mean(losses[-3:])
+    step_ms = 1e3 * statistics.median(secs[ZOO_FULL_WARM:])
+    b = batches[steps]
+    split, others, n_kernels = _traced_device_split(lambda: step(state, b))
+    device_ms = sum(split.values())
+    k2_bound, _ = _k2_bound(*[tree_leaves(merge_params(state.params,
+                                                       state.head))] * 2)
+    tokens = batch * seq
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    say("13b train zoo", arch=arch, family=cfg.family, params=n_params,
+        layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.padded_vocab,
+        untied="yes", reduced=reduced, strategy=run.strategy, batch=batch,
+        seq=seq, positions=seq + (cfg.num_patches if cfg.family == "vlm"
+                                  else 0),
+        frames=cfg.encoder_seq_len if cfg.family == "encdec" else 0,
+        steps=steps, lr=lr, beta=run.adagrad_beta,
+        losses=",".join(f"{x:.4f}" for x in losses),
+        loss_first3=f"{first3:.6f}", loss_last3=f"{last3:.6f}",
+        adagrad_launches=launches, adagrad_launches_a_step=per_step,
+        backbone_leaves=n_leaves[0], head_leaves=n_leaves[1],
+        k2_first_last_vs_plain="bitwise", k3_k4_k5_calls=0,
+        step_ms_median=f"{step_ms:.3f}",
+        step_ms=",".join(f"{1e3 * x:.3f}" for x in secs),
+        tok_s=f"{tokens / step_ms * 1e3:.1f}",
+        peak_gb_steps_2_on=f"{peak_gb:.2f}", wall_s=f"{wall:.3f}",
+        traced_kernels=n_kernels, step_device_ms=f"{device_ms:.3f}",
+        step_idle_share=f"{1 - device_ms / step_ms:.3f}",
+        **{f"step_{part}_ms": f"{ms:.3f}" for part, ms in split.items()},
+        k2_bound_ms_a_step=f"{k2_bound:.3f}",
+        step_other_top5=";".join(f"{name}:{ms:.3f}" for name, ms in top))
+    check(all(np.isfinite(losses)) and last3 < first3,
+          f"train zoo: {arch}: finite losses whose mean over the last 3 "
+          f"steps ({last3}) is below the first 3's ({first3}): {losses}")
+    del state, batches, b, api, opt, init, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bf16_gaps(got, want, zero=()) -> dict:
+    """``got``, ``want``: (initial state, state after one step, metrics).
+    The gaps ``BF16_TRAIN_TOL`` bounds (the ``zero`` leaves left out)."""
+    from repro_torch.models.model import _paths
+
+    gaps = {"loss": abs(float(got[2]["loss"]) - float(want[2]["loss"]))}
+    for key, field in (("update", "params"), ("accumulator", "opt_state")):
+        leaves, tdef = tree_flatten(getattr(got[0], field))
+        worst = 0.0
+        for path, g0, g1, w0, w1 in zip(_paths(tdef), leaves, *(
+                tree_leaves(getattr(s, field))
+                for s in (got[1], want[0], want[1]))):
+            if path.rsplit("/", 1)[-1] in zero:
+                continue
+            dg, dw = (g1 - g0).cpu(), (w1 - w0).cpu()
+            if key == "accumulator":
+                dg, dw = g1.cpu(), w1.cpu()
+            scale = float(dw.abs().max())
+            if scale:
+                worst = max(worst, _max_err(dg, dw) / scale)
+        gaps[key] = worst
+    return gaps
+
+
+def _zoo_bf16_card_vs_cpu(arch: str) -> dict:
+    """13c: one bf16 ``dp_full`` step of a smoke config on the card and on
+    the host CPU from one init; returns the gaps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.split_parallel import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding.spec import values_tree
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    api = build_model(cfg, compute_dtype=torch.bfloat16)
+    init, step = make_train_step(
+        api, get_optimizer("adagrad", ZOO_SMOKE_LR, use_kernel=True),
+        strategy="dp_full")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = values_tree(api.init(gen))
+    batch = _zoo_batches(cfg, 1, ZOO_BF16_BATCH, ZOO_BF16_SEQ)
+    out = {}
+    for dev, p in (("cpu", tree_map(lambda x: x.cpu(), params)),
+                   ("cuda", params)):
+        s0 = init(params=p)
+        s1, m = step(s0, _on(batch, dev)[0])
+        out[dev] = (s0, s1, m)
+    gaps = _bf16_gaps(out["cuda"], out["cpu"], ZERO_GRAD.get(arch, ()))
+    check(all(gaps[k] <= BF16_TRAIN_TOL[k] for k in gaps),
+          f"train zoo bf16: {arch} one dp_full step on the card within "
+          f"{BF16_TRAIN_TOL} of the host CPU's: {gaps}")
+    return gaps
+
+
+def phase_train_zoo() -> int:
+    """Phase 13 (the module docstring): returns K2's launches on the paths
+    (runs b and c)."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import train
+
+    # a. the card against the host CPU at smoke widths
+    for arch in ZOO_FAULTS:
+        _zoo_card_vs_cpu(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # b. every published width, one family at a time
+    launches = sum(_zoo_full(*row) for row in ZOO_FULL)
+
+    # c. bf16: qwen1.5-0.5b through train_loop, then the card against the
+    # host CPU
+    run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
+                    learning_rate=TRAIN_LR, compute_dtype="bfloat16", seed=0)
+    step_s = []
+
+    def timing(make):
+        def make_timed(api, opt, **kw):
+            init, step_fn = make(api, opt, **kw)
+
+            def step(state, batch):
+                if len(step_s) == TRAIN_WARM:
+                    torch.cuda.reset_peak_memory_stats()
+                out, took = _synced(step_fn, state, batch)
+                step_s.append(took)
+                return out
+            return init, step
+        return make_timed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _patched(train, "make_train_step", timing):
+        _zero_counts()
+        losses, state = train.train_loop(get_arch_config(TRAIN_ARCH), run,
+                                         steps=TRAIN_STEPS,
+                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bf16_launches = counts["adagrad_update_leaves"]
+    check(bf16_launches == 2 * TRAIN_STEPS and sum(counts.values())
+          == bf16_launches,
+          f"train zoo bf16: K2 launched twice a step and no other kernel: "
+          f"{counts}")
+    check(all(x.dtype == torch.float32 for x in tree_leaves(
+        (state.params, state.head, state.opt_state, state.head_opt_state)))
+          and state.prev_features.dtype == torch.bfloat16,
+          "train zoo bf16: params, head and accumulators f32, the replayed "
+          "features bf16")
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(all(np.isfinite(losses)) and last5 < first5,
+          f"train zoo bf16: mean loss of the last 5 steps ({last5}) below "
+          f"the first 5 ({first5}): {losses}")
+    step_ms = 1e3 * statistics.median(step_s[TRAIN_WARM:])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = {arch: _zoo_bf16_card_vs_cpu(arch) for arch in ZOO_BF16}
+    say("13c train zoo bf16", arch=TRAIN_ARCH, compute_dtype="bfloat16",
+        params_dtype="float32", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, loss_first5=f"{first5:.6f}",
+        loss_last5=f"{last5:.6f}",
+        losses=",".join(f"{x:.4f}" for x in losses),
+        adagrad_launches=bf16_launches, step_ms_median=f"{step_ms:.3f}",
+        tok_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f}",
+        peak_gb_steps_2_on=f"{peak_gb:.2f}",
+        **{f"card_vs_cpu_{arch}_{k}": f"{v:.3g}"
+           for arch, g in gaps.items() for k, v in g.items()},
+        card_vs_cpu_bars=",".join(f"{k}={v}"
+                                  for k, v in BF16_TRAIN_TOL.items()))
+    return launches + bf16_launches
+
+
 def _ptxas(name: str) -> list:
     """(CUDA function, registers a thread, spill bytes) of each entry
     function of kernel ``name``, from ptxas's ``-v`` lines in its build
@@ -2165,6 +2706,8 @@ def main() -> int:
         fault=_state_dropped("cross_k", "cross_v"),
         prompt=WHISPER_PROMPT)["flash_attention"]
     kernels["flash_attention"]["launches"] = k3_launches
+    kernels["adagrad"]["launches"] += phase_train_zoo()
+    print(_smi(), flush=True)          # again beside the numbers it qualifies
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

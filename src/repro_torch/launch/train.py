@@ -6,6 +6,8 @@ Usage:
       --steps 20 --batch 8 --seq 512                  # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --smoke --steps 6 --device cpu                  # anywhere
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+      --smoke --steps 6 --lr 0.1 --compute-dtype bfloat16 --device cpu
 """
 from __future__ import annotations
 
@@ -26,25 +28,29 @@ from repro_torch.launch.steps import arch_for_run
 from repro_torch.models.model import build_model
 from repro_torch.optim import get_optimizer
 
-_LATER = "comes with a later slice of the port (ROADMAP.md, Queue 1 item {})"
-
-
 def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
                log_every: int = 10, checkpoint_path=None, device="cuda"):
     """Train ``cfg`` for ``steps`` on synthetic LM batches with the
     strategy named in ``run``; returns (per-step losses, final state).
 
-    Params and compute are f32 (``run.compute_dtype`` must say so); the
-    adagrad optimizer runs its kernel (K2) on the card and its plain
-    version on the CPU."""
+    Params are f32 and the model computes in ``run.compute_dtype``, as the
+    JAX package's ``train_loop``; the adagrad optimizer runs its kernel
+    (K2) on the card and its plain version on the CPU.  The batches are
+    tokens alone (``make_lm_batch``), so the ``vlm`` and ``encdec``
+    families, whose batches also carry patches or frames, are refused:
+    they train through ``make_train_step`` with those in the batch."""
     dev = resolve_device(device)
-    if run.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"training at compute dtype {run.compute_dtype} "
-            + _LATER.format("5 (bf16 training)"))
+    if cfg.family in ("vlm", "encdec"):
+        raise ValueError(
+            f"train_loop makes token batches alone, and a {cfg.family!r} "
+            f"batch ({cfg.name}) also needs "
+            f"{'patches' if cfg.family == 'vlm' else 'frames'}; the JAX "
+            f"package's train_loop fails on it too (KeyError). Train it "
+            f"through make_train_step with them in the batch")
+    dtype = getattr(torch, run.compute_dtype)
     shape = InputShape("custom", seq, batch, "train")
     cfg = arch_for_run(cfg, shape, run.strategy)
-    api = build_model(cfg, compute_dtype=torch.float32, remat=run.remat)
+    api = build_model(cfg, compute_dtype=dtype, remat=run.remat)
     kw = {"use_kernel": True} if run.optimizer == "adagrad" else {}
     opt = get_optimizer(run.optimizer, run.learning_rate,
                         adagrad_beta=run.adagrad_beta,
@@ -69,7 +75,7 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     state = init_state(generator)
     first = batch_at(0)
     if run.strategy in ("split_concurrent", "split_server_sharded"):
-        state = init_prev_features(state, api, first, dtype=torch.float32)
+        state = init_prev_features(state, api, first, dtype=dtype)
     losses = []
     t0 = time.time()
     for i in range(steps):
@@ -111,8 +117,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.data_par * args.model_par > 1:
         raise NotImplementedError(
-            "--data-par/--model-par > 1 (a device mesh) "
-            + _LATER.format("7 (sharding)"))
+            "--data-par/--model-par > 1 (a device mesh) comes with a later "
+            "slice of the port (ROADMAP.md, Queue 1 item 7 (sharding))")
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_arch_config(args.arch))
     run = RunConfig(arch=args.arch, strategy=args.strategy,

@@ -9,7 +9,10 @@ stack with a leading ``layers`` axis), so a JAX tree carries across leaf
 for leaf.  The encoder's self-attention (non-causal) and the decoder's
 self- and cross-attention over the whole sequence run K3; decode keeps a
 self-attention KV cache (written in place) and reads the cross K/V the
-prefill computed.
+prefill computed.  Training (``forward_train(differentiable=True)``) runs
+every attention in torch ops, since K3 has no backward, and under
+``remat`` recomputes each decoder block in the backward pass (the encoder
+is not recomputed, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -56,8 +59,10 @@ def init_model(generator, cfg):
     }
 
 
-def encode(params, cfg, frames, *, dtype=torch.bfloat16):
-    """frames: (B, T_enc, D) stub embeddings -> (B, T_enc, D)."""
+def encode(params, cfg, frames, *, dtype=torch.bfloat16,
+           differentiable=False):
+    """frames: (B, T_enc, D) stub embeddings -> (B, T_enc, D).
+    ``differentiable``: the attention in torch ops, for training."""
     t = frames.shape[1]
     x = frames.to(dtype) + L.sinusoidal_positions(
         t, cfg.d_model, device=frames.device).to(dtype)[None]
@@ -67,7 +72,8 @@ def encode(params, cfg, frames, *, dtype=torch.bfloat16):
         bp = layer(params["enc_blocks"], i)
         h, _ = L.attention(bp["attn"], cfg,
                            L.apply_norm(bp["attn_norm"], cfg, x),
-                           positions=positions, causal=False, use_rope=False)
+                           positions=positions, causal=False, use_rope=False,
+                           differentiable=differentiable)
         x = x + h
         x = x + L.apply_mlp(bp["mlp"], cfg,
                             L.apply_norm(bp["ffn_norm"], cfg, x))
@@ -75,20 +81,21 @@ def encode(params, cfg, frames, *, dtype=torch.bfloat16):
 
 
 def _dec_block(bp, cfg, x, enc_out, *, positions, cache=None,
-               cross_cache=None, cache_index=None):
+               cross_cache=None, cache_index=None, differentiable=False):
     """One decoder block.  Full sequence (``cache is None``): cross K/V
     projected from ``enc_out``; decode: ``cache`` the self-attention
-    (k, v, pos) and ``cross_cache`` the cross (k, v).  Returns (x, the
+    (k, v, pos) and ``cross_cache`` the cross (k, v).  ``differentiable``:
+    both attentions in torch ops, for training.  Returns (x, the
     self-attention's (k, v[, pos]), the cross (k, v))."""
     h, new_cache = L.attention(
         bp["attn"], cfg, L.apply_norm(bp["attn_norm"], cfg, x),
         positions=positions, causal=True, use_rope=False, cache=cache,
-        cache_index=cache_index)
+        cache_index=cache_index, differentiable=differentiable)
     x = x + h
     h, cross_kv = L.attention(
         bp["cross"], cfg, L.apply_norm(bp["cross_norm"], cfg, x),
         positions=positions, encoder_out=enc_out, cache=cross_cache,
-        use_rope=False)
+        use_rope=False, differentiable=differentiable)
     x = x + h
     x = x + L.apply_mlp(bp["mlp"], cfg, L.apply_norm(bp["ffn_norm"], cfg, x))
     return x, new_cache, cross_kv
@@ -102,17 +109,27 @@ def _embed_decoder(params, cfg, tokens, dtype):
 
 
 def forward_train(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
-                  window=None, compute_logits=True):
-    """A forward pass over the whole decoder sequence through K3 (no
-    training path yet: ``models/model.py`` refuses ``differentiable``).
-    Returns (logits, aux_loss 0, features)."""
-    enc_out = encode(params, cfg, frames, dtype=dtype)
+                  window=None, remat=True, compute_logits=True,
+                  differentiable=False):
+    """The encoder over ``frames``, then the whole decoder sequence:
+    (logits, aux_loss 0, features).  ``differentiable``: every attention
+    in torch ops, for training (K3 refuses inputs that require grad).
+    ``remat``: while autograd records, each decoder block runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    the JAX package's ``jax.checkpoint(body)`` over ``dec_blocks``."""
+    enc_out = encode(params, cfg, frames, dtype=dtype,
+                     differentiable=differentiable)
     x = _embed_decoder(params, cfg, tokens, dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
+
+    def body(bp, x, enc_out):
+        return _dec_block(bp, cfg, x, enc_out, positions=positions,
+                          differentiable=differentiable)[0]
+
     for i in range(cfg.num_layers):
-        x = _dec_block(layer(params["dec_blocks"], i), cfg, x, enc_out,
-                       positions=positions)[0]
+        x = L.checkpointed(body, layer(params["dec_blocks"], i), x, enc_out,
+                           enabled=remat)
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
               if compute_logits else None)

@@ -7,6 +7,10 @@ periods are stacked on a leading axis, and within a period the Mamba
 mixers, the dense FFNs and the MoE FFNs are stacked again.  The forward
 pass loops over the periods in Python where the JAX package scans.
 
+Training (``forward_train(differentiable=True)``) takes the torch-op
+attention and the torch-op selective scan, since K3 and K4 have no
+backward, and under ``remat`` recomputes each period in the backward pass.
+
 The cache holds, per period, the attention layer's KV ring (``k``, ``v``,
 ``pos``; decode writes it in place) and every Mamba layer's SSM state and
 conv tail (``ssm``, ``conv``; decode hands back new tensors).
@@ -84,8 +88,10 @@ def init_model(generator, cfg):
 
 
 def _apply_period(pp, cfg, x, *, positions, mode, attn_cache=None,
-                  mamba_state=None, cache_index=None, window=0):
-    """One period.  mode: train | prefill | decode.
+                  mamba_state=None, cache_index=None, window=0,
+                  differentiable=False):
+    """One period.  mode: train | prefill | decode.  ``differentiable``:
+    attention and the scan in torch ops, for training.
 
     Returns (x, aux, new_attn_cache, (ssm, conv) stacked over the period's
     Mamba layers)."""
@@ -102,12 +108,14 @@ def _apply_period(pp, cfg, x, *, positions, mode, attn_cache=None,
                     cache=attn_cache, cache_index=cache_index)
             else:
                 h, new_attn_cache = L.attention(
-                    pp["attn"], cfg, xn, positions=positions, window=window)
+                    pp["attn"], cfg, xn, positions=positions, window=window,
+                    differentiable=differentiable)
         else:
             st = ((mamba_state[0][mi], mamba_state[1][mi])
                   if mamba_state is not None else None)
             h, new_st = mamba_forward(layer(pp["mamba"], mi), cfg, xn,
-                                      state=st)
+                                      state=st,
+                                      differentiable=differentiable)
             new_states.append(new_st)
             mi += 1
         x = x + h
@@ -129,17 +137,26 @@ def _apply_period(pp, cfg, x, *, positions, mode, attn_cache=None,
 
 
 def forward_train(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
-                  compute_logits=True):
-    """A forward pass (the kernels have no backward): (logits, aux_loss,
-    features)."""
+                  remat=True, compute_logits=True, differentiable=False):
+    """Full sequence from zero states: (logits, aux_loss (the MoE layers'
+    sum), features).  ``differentiable``: attention and the scan in torch
+    ops, for training (K3 and K4 refuse inputs that require grad).
+    ``remat``: while autograd records, each period runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    the JAX package's ``jax.checkpoint(body)``."""
     window = cfg.sliding_window if window is None else window
     x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def body(pp, x):
+        return _apply_period(pp, cfg, x, positions=positions, mode="train",
+                             window=window,
+                             differentiable=differentiable)[:2]
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(_counts(cfg)[0]):
-        x, a, _, _ = _apply_period(layer(params["periods"], p), cfg, x,
-                                   positions=positions, mode="train",
-                                   window=window)
+        x, a = L.checkpointed(body, layer(params["periods"], p), x,
+                              enabled=remat)
         aux = aux + a
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = (L.lm_logits(params["head"], params["embed"], cfg, x)

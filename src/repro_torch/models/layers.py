@@ -22,8 +22,38 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.sharding.spec import Param, init_device, param, shard_act
+
+
+def checkpointed(fn, *args, enabled: bool = True):
+    """``fn(*args)``; when ``enabled`` and autograd records, under
+    ``torch.utils.checkpoint`` (non-reentrant), so its activations are
+    recomputed in the backward pass, as the JAX package's
+    ``jax.checkpoint``."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def chunked_scan(chunk_fn, param_, seqs, state, chunk: int):
+    """A recurrence over axis 1 of ``seqs`` as the JAX package's training
+    scans run it: ``chunk_fn(param_, *seqs, state) -> (y, state)`` over
+    ``chunk``-step chunks when they divide the sequence (more than one),
+    each checkpointed (:func:`checkpointed`) and the state carried from
+    one to the next; else in one shot.  Returns (y, the final state)."""
+    s = seqs[0].shape[1]
+    chunk = min(chunk, s)
+    if s % chunk or s == chunk:
+        return chunk_fn(param_, *seqs, state)
+    ys = []
+    for c0 in range(0, s, chunk):
+        y, state = checkpointed(chunk_fn, param_,
+                                *(z[:, c0:c0 + chunk] for z in seqs), state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
 
 ATTN_QUERY_CHUNK = 1024  # max query block for chunked attention
 

@@ -3,11 +3,13 @@
 The port of ``repro.models.mamba``, with the same parameter tree.  The
 selective scan runs in the Mamba kernel (K4), one launch per call over the
 whole sequence (prefill) or one token (decode), with the state carried
-inside the kernel; the JAX package scans its ``_scan_chunk`` (the same
-recurrence), chunked at ``SCAN_CHUNK`` steps.  The projections, the
-depthwise causal conv (whose last ``d_conv - 1`` inputs are the decode
-state), the D-skip and the SiLU gate are torch ops, as they are jnp ops
-there.
+inside the kernel.  K4 has no backward (nor has the JAX package's kernel),
+so a training pass (``differentiable``) runs :func:`_scan_chunk`, the port
+of the JAX package's differentiable scan, a step loop of torch ops over
+chunks of ``SCAN_CHUNK`` steps, each recomputed in the backward pass.  The
+projections, the depthwise causal conv (whose last ``d_conv - 1`` inputs
+are the decode state), the D-skip and the SiLU gate are torch ops, as they
+are jnp ops there.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mamba.ops import mamba_scan
+from repro_torch.models.layers import chunked_scan
 from repro_torch.sharding.spec import Param, init_device, param, shard_act
+
+SCAN_CHUNK = 256
 
 
 def _dims(cfg):
@@ -61,8 +66,28 @@ def _ssm_inputs(p, cfg, xh):
     return dt, b_t.float(), c_t.float()
 
 
-def mamba_forward(p, cfg, x, *, state=None):
+def _scan_chunk(a_log, dt, b_t, c_t, xh, h0):
+    """Sequential selective scan over one chunk, in torch ops that autograd
+    differentiates (the JAX package's ``_scan_chunk``).
+
+    dt: (B,T,di) f32; b_t/c_t: (B,T,ds) f32; xh: (B,T,di); h0: (B,di,ds)
+    f32.  Returns (y (B,T,di) f32, hT)."""
+    a = -torch.exp(a_log)                                 # (di, ds)
+    h, ys = h0, []
+    for dt_t, b_tt, c_tt, x_tt in zip(*(z.unbind(1) for z in (
+            dt, b_t, c_t, xh.float()))):
+        da = torch.exp(dt_t[:, :, None] * a[None])        # (B, di, ds)
+        dbx = (dt_t * x_tt)[:, :, None] * b_tt[:, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bds,bs->bd", h, c_tt))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_forward(p, cfg, x, *, state=None, differentiable=False):
     """Full-sequence forward (and, at S = 1, a decode step).  x: (B, S, D).
+    ``differentiable``: the scan in torch ops (:func:`_scan_chunk` over
+    ``SCAN_CHUNK``-step chunks), for training; else K4, which refuses
+    inputs that require grad.
 
     Returns (y, final_state) where state = (ssm_h, conv_tail):
       ssm_h (B, d_inner, d_state) f32, conv_tail (B, d_conv-1, d_inner)."""
@@ -84,10 +109,14 @@ def mamba_forward(p, cfg, x, *, state=None):
     h0 = (state[0] if state is not None
           else torch.zeros((b, d_inner, d_state), dtype=torch.float32,
                            device=x.device))
-    a = -torch.exp(p["A_log"])                            # (d_inner, ds)
-    y, hT = mamba_scan(dt.contiguous(), xh.float().contiguous(),
-                       b_t.contiguous(), c_t.contiguous(), a.contiguous(),
-                       h0.contiguous())
+    if differentiable:
+        y, hT = chunked_scan(_scan_chunk, p["A_log"], (dt, b_t, c_t, xh),
+                             h0, SCAN_CHUNK)
+    else:
+        a = -torch.exp(p["A_log"])                        # (d_inner, ds)
+        y, hT = mamba_scan(dt.contiguous(), xh.float().contiguous(),
+                           b_t.contiguous(), c_t.contiguous(),
+                           a.contiguous(), h0.contiguous())
 
     y = (y + xh.float() * p["D"]).to(x.dtype)
     y = shard_act(y * F.silu(z), "batch", "seq", "mamba")

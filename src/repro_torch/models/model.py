@@ -16,9 +16,11 @@ Every LM family is ported, dispatched on ``cfg.family`` as the JAX
 factory does: ``dense``, ``moe`` and ``vlm`` (``transformer``), ``ssm``
 (``rwkv``), ``hybrid`` (``hybrid``: Mamba, attention and MoE) and
 ``encdec`` (``encdec``).  A ``vlm`` batch carries ``patches`` (B, P, D),
-an ``encdec`` batch ``frames`` (B, T_enc, D).  Training (``train_loss``,
-and ``forward_features(differentiable=True)``) runs the ``dense`` family;
-the others raise ``NotImplementedError`` there (ROADMAP.md).
+an ``encdec`` batch ``frames`` (B, T_enc, D).  Every family trains
+(``train_loss``, and ``forward_features(differentiable=True)``): the
+training forward runs attention, the WKV and the selective scan in torch
+ops, as the JAX package's training paths run jnp ops, since the kernels
+(K3-K5) have no backward.
 """
 from __future__ import annotations
 
@@ -34,11 +36,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import encdec, hybrid, rwkv, transformer
 from repro_torch.sharding.spec import values_tree
 from repro_torch.tree import as_tensor, tree_flatten
-
-#: where the training of the families other than ``dense`` comes from
-_NO_TRAINING = ("Queue 1 item 5 (training of the families other than "
-                "dense)")
-
 
 def lm_loss(logits, labels, mask):
     """Token-mean masked cross-entropy; labels: (B,S) int, mask (B,S)."""
@@ -139,18 +136,13 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
     def forward_features(params, batch, *, window=None,
                          compute_logits=True, differentiable=False):
         """Backbone forward up to the pre-head hidden states;
-        ``differentiable`` for a pass autograd can differentiate."""
-        kw = {}
-        if differentiable:
-            if cfg.family != "dense":
-                raise NotImplementedError(
-                    f"training the {cfg.family!r} family ({cfg.name}) "
-                    f"comes with a later slice of the port: ROADMAP.md, "
-                    f"{_NO_TRAINING}")
-            kw = dict(remat=remat, differentiable=True)
+        ``differentiable`` for a pass autograd can differentiate (torch
+        ops where the kernels would run, each block recomputed in the
+        backward pass under ``remat``)."""
         return mod.forward_train(params, cfg, batch["tokens"],
                                  dtype=compute_dtype, window=window,
-                                 compute_logits=compute_logits, **kw,
+                                 compute_logits=compute_logits,
+                                 remat=remat, differentiable=differentiable,
                                  **_fwd_kwargs(batch))
 
     def head_logits(params, feats):

@@ -8,9 +8,12 @@ State per head is an (hd, hd) key-value outer-product matrix:
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
 
 The recurrence runs in the WKV kernel (K5), one launch per layer over the
-whole sequence (prefill) or one token (decode), where the JAX package scans
-its ``_wkv_chunk`` (the same recurrence).  Layer parameters keep the JAX
-package's stacked layout; the layers are a Python loop.
+whole sequence (prefill) or one token (decode).  K5 has no backward (nor
+has the JAX package's kernel), so a training pass (``differentiable``) runs
+:func:`_wkv_chunk`, the port of the JAX package's differentiable scan, a
+step loop of torch ops over chunks of ``SCAN_CHUNK`` steps, each recomputed
+in the backward pass.  Layer parameters keep the JAX package's stacked
+layout; the layers are a Python loop.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer, stack_layers
 from repro_torch.sharding.spec import Param, init_device, param, shard_act
 
+SCAN_CHUNK = 256
 DECAY_LORA = 64
 
 
@@ -97,8 +101,27 @@ def _group_norm(y, scale, bias, heads: int, eps: float = 1e-5):
     return (yf.reshape(b, t, d) * scale + bias).to(y.dtype)
 
 
-def time_mix_forward(p, cfg, x, *, state=None):
-    """x: (B, S, D) -> (y, (wkv_state, shift_prev))."""
+def _wkv_chunk(u, r, k, v, w, s0):
+    """Sequential WKV over one chunk, in torch ops that autograd
+    differentiates (the JAX package's ``_wkv_chunk``).
+
+    r/k/v: (B,T,H,hd); w: (B,T,H,hd) decay in (0,1); s0: (B,H,hd,hd) f32.
+    Returns (y (B,T,H,hd) f32, sT)."""
+    s, ys = s0, []
+    for r_t, k_t, v_t, w_t in zip(*(z.float().unbind(1)
+                                    for z in (r, k, v, w))):  # (B,H,hd)
+        kv = k_t[..., :, None] * v_t[..., None, :]            # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
+                               s + u[None, :, :, None] * kv))
+        s = w_t[..., :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def time_mix_forward(p, cfg, x, *, state=None, differentiable=False):
+    """x: (B, S, D) -> (y, (wkv_state, shift_prev)).  ``differentiable``:
+    the WKV in torch ops (:func:`_wkv_chunk` over ``SCAN_CHUNK``-step
+    chunks), for training; else K5, which refuses inputs that require
+    grad."""
     h, hd = _dims(cfg)
     b, s, d = x.shape
     prev = (state[1].to(x.dtype) if state is not None
@@ -125,8 +148,13 @@ def time_mix_forward(p, cfg, x, *, state=None):
     s0 = (state[0] if state is not None
           else torch.zeros((b, h, hd, hd), dtype=torch.float32,
                            device=x.device))
-    y, sT = wkv(heads_(r), heads_(k), heads_(v), heads_(w),
-                p["u"].contiguous(), s0.contiguous())
+    if differentiable:
+        y, sT = L.chunked_scan(_wkv_chunk, p["u"],
+                               tuple(heads_(z) for z in (r, k, v, w)), s0,
+                               SCAN_CHUNK)
+    else:
+        y, sT = wkv(heads_(r), heads_(k), heads_(v), heads_(w),
+                    p["u"].contiguous(), s0.contiguous())
     y = y.reshape(b, s, d).to(x.dtype)
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], h) * g
     out = y @ p["w_o"].to(x.dtype)
@@ -188,10 +216,11 @@ def init_model(generator, cfg):
     }
 
 
-def _apply_block(bp, cfg, x, *, state=None):
+def _apply_block(bp, cfg, x, *, state=None, differentiable=False):
     tm_state = (state["wkv"], state["shift_tm"]) if state is not None else None
     h, (wkv_state, shift_tm) = time_mix_forward(
-        bp["tm"], cfg, L.apply_norm(bp["ln1"], cfg, x), state=tm_state)
+        bp["tm"], cfg, L.apply_norm(bp["ln1"], cfg, x), state=tm_state,
+        differentiable=differentiable)
     x = x + h
     cm_state = state["shift_cm"] if state is not None else None
     h, shift_cm = channel_mix_forward(
@@ -218,11 +247,20 @@ def _run(params, cfg, x, states):
 
 
 def forward_train(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
-                  compute_logits=True):
-    """A forward pass (the kernels have no backward): (logits, aux_loss,
-    features)."""
-    x, _ = _run(params, cfg, _embed(params, cfg, tokens, dtype),
-                lambda i: None)
+                  remat=True, compute_logits=True, differentiable=False):
+    """Full sequence from zero states: (logits, aux_loss 0, features).
+    ``differentiable``: the WKV in torch ops, for training (K5 refuses
+    inputs that require grad).  ``remat``: while autograd records, each
+    block runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward pass, as the JAX package's ``jax.checkpoint(body)``.  The
+    blocks' final states are dropped as each block ends."""
+    def body(bp, x):
+        return _apply_block(bp, cfg, x, differentiable=differentiable)[0]
+
+    x = _embed(params, cfg, tokens, dtype)
+    for i in range(cfg.num_layers):
+        x = L.checkpointed(body, layer(params["blocks"], i), x,
+                           enabled=remat)
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = (L.lm_logits(params["head"], params["embed"], cfg, x)
               if compute_logits else None)

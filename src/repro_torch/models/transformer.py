@@ -23,7 +23,6 @@ Modes:
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -157,11 +156,8 @@ def forward_train(params, cfg, tokens, *, patches=None,
 
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
-        if remat and torch.is_grad_enabled():
-            x, a = checkpoint(body, bp, x, use_reentrant=False)
-        else:
-            x, a = body(bp, x)
+        x, a = L.checkpointed(body, layer(params["blocks"], i), x,
+                              enabled=remat)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], cfg, x)

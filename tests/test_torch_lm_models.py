@@ -349,24 +349,6 @@ def test_jamba_cut_served_on_one_card_counts_as_jax():
         == jax_count_params(jcfg, active_only=True) == 3_457_179_648
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-small",
-                                  "internvl2-26b"])
-def test_families_of_later_slices_are_refused(arch):
-    """These families are served (``tests/test_torch_zoo.py``); their
-    training forward comes with ROADMAP.md's Queue 1 item 5."""
-    cfg = get_smoke_config(arch)
-    api = build_model(cfg)
-    spec = api.batch_spec(dataclasses.replace(
-        INPUT_SHAPES["train_4k"], seq_len=cfg.num_patches + 4),
-        global_batch=1)
-    batch = {k: torch.zeros(shape, dtype=dtype)
-             for k, (shape, dtype) in spec.items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        api.forward_features(None, batch, differentiable=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        api.train_loss(None, batch)
-
-
 # --- bf16, the default compute dtype -----------------------------------------
 
 #: The bf16 bars, at most twice the largest gap between the two packages

@@ -322,15 +322,6 @@ def test_kernel_wrapper_refuses_inputs_that_require_grad():
         api.forward_features(params, {"tokens": tokens})
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
-def test_train_loss_of_the_recurrent_families_is_refused(arch):
-    cfg = get_smoke_config(arch)
-    api = build_model(cfg, compute_dtype=torch.float32)
-    batch = tree_as_tensors(_batches(cfg.vocab_size, 1, b=1, s=8)[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        api.train_loss({}, batch)
-
-
 @pytest.mark.parametrize("window", [0, 6])
 def test_chunked_attention_matches_jax(monkeypatch, window):
     """The differentiable attention with query chunks of 8 over S 24
@@ -483,8 +474,7 @@ def test_train_cli_on_the_cpu_lowers_the_loss():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-par", "2"], "Queue 1 item 7"),
-    (["--compute-dtype", "bfloat16"], "Queue 1 item 5")])
+    (["--data-par", "2"], "Queue 1 item 7")])
 def test_train_cli_refuses_what_later_slices_bring(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(["--smoke", "--steps", "1", "--device", "cpu"] + argv)
