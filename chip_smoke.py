@@ -673,12 +673,15 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
                       f"window={window}: max err {_max_err(got, want)}")
                 k3_err[name] = max(k3_err[name], _max_err(got, want))
                 k3_cases += 1
-    # the main path's shapes, each checked and timed: qwen3-4b's prefill
-    # (GQA 32:8) and the Jamba cut's (64:8)
+    # the main path's shapes: qwen3-4b's prefill (GQA 32:8) and the Jamba
+    # cut's (64:8), each checked and timed, and phase 14c's sharded
+    # qwen3-moe prefill (32:4 at its shorter prompt), checked
     k3_times = {}
-    for model, hq in (("qwen3-4b", 32), ("jamba", 64)):
-        q = rand(SERVE_BATCH, SERVE_PROMPT, hq, 128)
-        k, v = (rand(SERVE_BATCH, SERVE_PROMPT, 8, 128) for _ in range(2))
+    for model, s, hq, hkv in (("qwen3-4b", SERVE_PROMPT, 32, 8),
+                              ("jamba", SERVE_PROMPT, 64, 8),
+                              ("14c qwen3-moe", SHARD_PROMPT, 32, 4)):
+        q = rand(SERVE_BATCH, s, hq, 128)
+        k, v = (rand(SERVE_BATCH, s, hkv, 128) for _ in range(2))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         got = flash_attention(q, k, v)
         want = attention_ref(qt, kt, vt).transpose(1, 2)
@@ -687,6 +690,8 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
               f"{model}'s prefill shape: max err {_max_err(got, want)}")
         k3_err["float32"] = max(k3_err["float32"], _max_err(got, want))
         k3_cases += 1
+        if model.startswith("14c"):
+            continue
         k3_times[model] = dict(
             ms=timer(lambda: flash_attention(q, k, v)),
             plain_ms=timer(lambda: attention_ref(qt, kt, vt)),
@@ -953,15 +958,28 @@ def _train_state(params, opt):
                       step=torch.zeros((), dtype=torch.int32))
 
 
-async def _fabric_train(rounds: int, n_clients: int = 3):
+def _breaching_slos():
+    """The planted fault of phase 4: a round-latency objective of 1 us,
+    which no round over the wire meets."""
+    from repro_torch.obs import Slo
+    return (Slo("round-latency-p95-1us", "round.duration_seconds", "<=",
+                1e-6, stat="p95"),)
+
+
+async def _fabric_train(rounds: int, n_clients: int = 3, slos=None):
+    """``rounds`` FIG4 rounds over remote v2-wire clients, with the round
+    SLOs ``slos`` evaluated against a metrics registry and a shard
+    rebalancer at each round boundary.  Returns (loop, trainer, errors,
+    each round's RoundResult)."""
     from repro_torch.core.distributor import ClientProfile, TaskDef
     from repro_torch.core.federation import FederatedDistributor
     from repro_torch.core.transport import (TransportServer,
                                             spawn_remote_clients)
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.optim import adagrad
     from repro_torch.train_fabric import (FederatedTrainer,
                                           FederatedTrainingLoop,
-                                          FusedServerStep)
+                                          FusedServerStep, Rebalancer)
 
     rows, args, work = _fabric_plan()
     fed = FederatedDistributor(2, n_shards=4, timeout=20.0,
@@ -981,14 +999,16 @@ async def _fabric_train(rounds: int, n_clients: int = 3):
     params = cnn.init_cnn(torch.Generator().manual_seed(0), FIG4_CNN)
     trainer = FederatedTrainer(fed, task_name="cnn_grad_shard",
                                barrier_k=0.75, straggler_policy="reticket",
-                               timeout=60.0)
+                               timeout=60.0, metrics=MetricsRegistry(),
+                               slos=slos, rebalancer=Rebalancer(fed))
     loop = FederatedTrainingLoop(
         trainer, opt, _train_state(params, opt),
         server_step=FusedServerStep(opt, lr=FABRIC_LR, beta=1.0))
+    results = []
     try:
         async with trainer:
             for _ in range(rounds):
-                await loop.run_round(args, work)
+                results.append(await loop.run_round(args, work))
         await asyncio.wait_for(asyncio.gather(*tasks), 60.0)
     finally:
         # bounded: TransportServer.stop() waits for open connections
@@ -996,7 +1016,7 @@ async def _fabric_train(rounds: int, n_clients: int = 3):
         await fed.shutdown()
     errors = (sum(c.errors for c in clients)
               + fed.queue.snapshot()["errors"] + server.protocol_errors)
-    return loop, trainer, errors
+    return loop, trainer, errors, results
 
 
 def _synced(fn, *args, **kwargs) -> tuple:
@@ -1072,6 +1092,7 @@ def _same_bits(a, b) -> bool:
 
 
 def phase_fabric() -> int:
+    from repro_torch.obs import DEFAULT_ROUND_SLOS
     from repro_torch.train_fabric import (load_round_checkpoint,
                                           param_count, state_to_tree)
 
@@ -1088,10 +1109,25 @@ def phase_fabric() -> int:
                 (step_mod, "server_step_update")))
         _zero_counts()
         t0 = time.perf_counter()
-        loop, trainer, errors = asyncio.run(_fabric_train(FABRIC_ROUNDS))
+        loop, trainer, errors, rounds = asyncio.run(_fabric_train(
+            FABRIC_ROUNDS, slos=DEFAULT_ROUND_SLOS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = server_step_update.launches
+    slo_names = {slo.name for slo in DEFAULT_ROUND_SLOS}
+    check(len(rounds) == FABRIC_ROUNDS and all(
+        r.slos is not None and {x["name"] for x in r.slos} == slo_names
+        for r in rounds),
+          f"every default round SLO evaluated at every round close: "
+          f"{[r.slos for r in rounds]}")
+    check(all(r.slo_ok for r in rounds),
+          f"every round meets the default SLOs: "
+          f"{[[x for x in r.slos if not x['ok']] for r in rounds]}")
+    check(sum(r.migrations for r in rounds)
+          == len(trainer.rebalancer.history),
+          f"the rounds count the rebalancer's migrations: "
+          f"{[r.migrations for r in rounds]} vs "
+          f"{trainer.rebalancer.history}")
     check(launches == FABRIC_ROUNDS,
           f"server_step launched once per round: {launches} launches in "
           f"{FABRIC_ROUNDS} rounds")
@@ -1152,6 +1188,10 @@ def phase_fabric() -> int:
     turns = [(name, _host_ms(builds[name])) for name in order]
     stack_ms = {name: statistics.mean(ms for k, ms in turns if k == name)
                 for name in builds}
+    # the planted fault: one more round, under an SLO no round meets
+    _, _, _, (bad,) = asyncio.run(_fabric_train(1, slos=_breaching_slos()))
+    check(not bad.slo_ok and bad.slos[0]["value"] > 1e-6,
+          f"a round-latency SLO of 1 us breaches: {bad.slos}")
     say("4 fabric", model=FIG4_CNN.name,
         params=param_count(loop.state.params), rounds=FABRIC_ROUNDS,
         shards=f"{FABRIC_SHARDS}x{FABRIC_BATCH}", clients="3_remote_v2",
@@ -1159,6 +1199,14 @@ def phase_fabric() -> int:
         max_delta_vs_twin=f"{delta:.3g}", final_state_vs_twin="bitwise",
         stale=loop.stale_executions,
         errors=errors, reticketed=trainer.reticketed_total,
+        slo_ok=",".join(str(r.slo_ok).lower() for r in rounds),
+        slo_round_p95_s=",".join(
+            str(next(x["value"] for x in r.slos
+                     if x["name"] == "round-latency-p95")) for r in rounds),
+        migrations=",".join(str(r.migrations) for r in rounds),
+        planted_slo=bad.slos[0]["name"],
+        planted_slo_ok=str(bad.slo_ok).lower(),
+        planted_slo_value_s=bad.slos[0]["value"],
         server_step_launches=launches, checkpoint="bit-exact",
         wall_s=f"{wall:.3f}",
         fused_step_ms_median=_ms_median(step_s),
@@ -1880,7 +1928,7 @@ def phase_train() -> int:
     from repro_torch.core.split_parallel import (make_train_step,
                                                  merge_params, split_params)
     from repro_torch.kernels.adagrad import ops as k2_ops
-    from repro_torch.launch import train
+    from repro_torch.launch import steps, train
     from repro_torch.models.model import build_model, count_params_analytic
     from repro_torch.optim import get_optimizer
     from repro_torch.sharding.spec import values_tree
@@ -1925,7 +1973,7 @@ def phase_train() -> int:
         stray = [stack.enter_context(_recording(module, attr, every=True))
                  for module, attr in ((layers, "flash_attention"),
                                       (rwkv, "wkv"), (mamba, "mamba_scan"))]
-        stack.enter_context(_patched(train, "make_train_step", checking))
+        stack.enter_context(_patched(steps, "make_train_step", checking))
         gc.collect()
         torch.cuda.empty_cache()
         _zero_counts()
@@ -2532,7 +2580,7 @@ def phase_train_zoo() -> int:
     (runs b and c)."""
     from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.launch import train
+    from repro_torch.launch import steps, train
 
     # a. the card against the host CPU at smoke widths
     for arch in ZOO_FAULTS:
@@ -2564,7 +2612,7 @@ def phase_train_zoo() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    with _patched(train, "make_train_step", timing):
+    with _patched(steps, "make_train_step", timing):
         _zero_counts()
         losses, state = train.train_loop(get_arch_config(TRAIN_ARCH), run,
                                          steps=TRAIN_STEPS,
@@ -2605,6 +2653,214 @@ def phase_train_zoo() -> int:
         card_vs_cpu_bars=",".join(f"{k}={v}"
                                   for k, v in BF16_TRAIN_TOL.items()))
     return launches + bf16_launches
+
+
+# --- 14. the sharded paths on a 1x1 mesh over NCCL ---------------------------
+
+#: 14a: split_concurrent steps of qwen1.5-0.5b, sharded and not
+SHARD_TRAIN_STEPS = 3
+#: 14c: the qwen3-moe-30b-a3b cut (every width, 4 layers as in 13b), its
+#: prompt and new tokens
+SHARD_MOE_CUT = dict(num_layers=4)
+SHARD_PROMPT, SHARD_GEN = 64, 4
+
+
+def _whole_state(state):
+    """A TrainState's DTensor leaves gathered whole (plain tensors pass)."""
+    from repro_torch.core.split_parallel import TrainState
+    from repro_torch.launch.train import _whole
+    from repro_torch.tree import tree_map
+    return TrainState(**{k: tree_map(_whole, v)
+                         for k, v in vars(state).items()})
+
+
+def _greedy(prefill, decode, params, prompts, gen: int, vocab: int):
+    """Prefill (cache for prompt + ``gen``) and ``gen`` greedy decode
+    steps: (each call's last-position logits (B, V) on the host, the
+    tokens fed)."""
+    from repro_torch.launch.train import _whole
+    s = prompts.shape[1]
+    logits, cache = prefill(params, {"tokens": prompts}, cache_len=s + gen)
+    out, toks = [_whole(logits)[:, -1, :vocab].cpu()], []
+    for i in range(gen):
+        tok = out[-1].argmax(-1)[:, None].to(torch.int32).cuda()
+        toks.append(tok.cpu())
+        logits, cache = decode(params, cache, tok, s + i)
+        out.append(_whole(logits)[:, -1, :vocab].cpu())
+    return out, toks
+
+
+def phase_sharded() -> dict:
+    """Phase 14: the sharding layer's paths on a 1x1 mesh (one card holds
+    one NCCL rank), each against its unsharded run on the card.  Returns
+    the launches of K2, K1 and K3 on them."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from repro_torch.configs import InputShape, RunConfig, get_arch_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adagrad
+    from repro_torch.sharding.spec import values_tree
+    from repro_torch.tree import tree_map
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=300))
+        try:
+            mesh = make_local_mesh(1, 1, device="cuda")
+
+            # a. train_loop on the mesh against train_loop without one
+            run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
+                            learning_rate=TRAIN_LR, compute_dtype="float32",
+                            seed=0)
+            cfg = get_arch_config(TRAIN_ARCH)
+            kw = dict(steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, device="cuda",
+                      log_every=SHARD_TRAIN_STEPS)
+            want_losses, want = train.train_loop(cfg, run, **kw)
+            gc.collect()
+            _zero_counts()
+            (losses, got), took = _synced(train.train_loop, cfg, run,
+                                          mesh=mesh, **kw)
+            counts = {w.__name__: w.launches for w in WRAPPERS}
+            got = _whole_state(got)
+            ok, gap = _state_gap(got, want)
+            loss_gap = max(abs(a - b) for a, b in zip(losses, want_losses))
+            check(ok and loss_gap <= TRAIN_TOL["atol"],
+                  f"14a: every loss and state leaf of the sharded run "
+                  f"within the f32 model bar of the unsharded one: loss gap "
+                  f"{loss_gap}, state gap {gap}")
+            launches = counts["adagrad_update_leaves"]
+            check(launches == 2 * SHARD_TRAIN_STEPS and all(
+                counts[w.__name__] == 0 for w in (
+                    flash_attention, wkv, mamba_scan, server_step_update,
+                    adagrad_update)),
+                  f"14a: K2 twice a step on the local shards and no other "
+                  f"kernel: {counts}")
+            out["adagrad"] = launches
+            say("14a shard-train", arch=TRAIN_ARCH, mesh="1x1",
+                backend=dist.get_backend(), strategy=run.strategy,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_TRAIN_STEPS,
+                losses=",".join(f"{x:.6f}" for x in losses),
+                max_loss_gap=loss_gap, max_state_gap=gap,
+                adagrad_launches=launches,
+                s_per_step=f"{took / SHARD_TRAIN_STEPS:.3f}")
+            del got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # b. FusedServerStep row-sharded over the data axis, at FIG4
+            opt = adagrad(FABRIC_LR, beta=1.0)
+            params = cnn.init_cnn(torch.Generator().manual_seed(0),
+                                  FIG4_CNN)
+            rng = np.random.default_rng(0)
+            acc = tree_map(lambda v: torch.from_numpy(rng.uniform(
+                0, 1, tuple(v.shape)).astype(np.float32)).cuda(), params)
+            grads = [tree_map(lambda v: rng.normal(
+                0, 1e-2, tuple(v.shape)).astype(np.float32), params)
+                for _ in range(FABRIC_SHARDS)]
+            works = [float(FABRIC_BATCH)] * FABRIC_SHARDS
+            want_p, want_o = step_mod.FusedServerStep(
+                opt, lr=FABRIC_LR, beta=1.0).step(grads, works, params,
+                                                  {"acc": acc})
+            sharded = step_mod.FusedServerStep(opt, lr=FABRIC_LR, beta=1.0,
+                                               mesh=mesh)
+            _zero_counts()
+            (got_p, got_o), took = _synced(sharded.step, grads, works,
+                                           params, {"acc": acc})
+            k1 = server_step_update.launches
+            same = all(_same_bits(a, b) for a, b in zip(
+                tree_leaves(got_p) + tree_leaves(got_o["acc"]),
+                tree_leaves(want_p) + tree_leaves(want_o["acc"])))
+            check(same and k1 == 1,
+                  f"14b: the row-sharded server step bitwise the unsharded "
+                  f"one, with one K1 launch: bitwise {same}, {k1} launches")
+            out["server_step"] = k1
+            say("14b shard-server-step", model=FIG4_CNN.name, mesh="1x1",
+                members=FABRIC_SHARDS,
+                params=sum(v.numel() for v in tree_leaves(params)),
+                vs_unsharded="bitwise", server_step_launches=k1,
+                step_ms=f"{1e3 * took:.3f}")
+
+            # c. the qwen3-moe cut served under fsdp_tp rules
+            mcfg = dataclasses.replace(get_arch_config("qwen3-moe-30b-a3b"),
+                                       **SHARD_MOE_CUT)
+            arch = "qwen3-moe-30b-a3b"
+            api = build_model(mcfg, compute_dtype=torch.float32)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            mparams = values_tree(api.init(gen))
+            prompts = torch.from_numpy(np.random.default_rng(0).integers(
+                0, mcfg.vocab_size, (SERVE_BATCH, SHARD_PROMPT))).to(
+                    "cuda", torch.int32)
+            with torch.inference_mode():
+                want_l, want_t = _greedy(api.prefill, api.decode_step,
+                                         mparams, prompts, SHARD_GEN,
+                                         mcfg.vocab_size)
+            srun = RunConfig(arch=arch, strategy="fsdp_tp",
+                             compute_dtype="float32")
+            pre = build_prefill_step(mcfg, srun, InputShape(
+                "p", SHARD_PROMPT, SERVE_BATCH, "prefill"), mesh)
+            dec = build_decode_step(mcfg, srun, InputShape(
+                "d", SHARD_PROMPT + SHARD_GEN, SERVE_BATCH, "decode"), mesh)
+            layout = ("replicated_batch" if dec.rules["batch"] is None
+                      else "batch_sharded")
+            pre_p, = pre.place(mparams)       # placed once for every call
+            dec_p, = dec.place(mparams)
+            sharded_moe = []
+
+            def counting(orig):
+                def run_(*a, **k):
+                    sharded_moe.append(1)
+                    return orig(*a, **k)
+                return run_
+
+            # no_grad: DTensor's ops cannot run on inference-mode tensors
+            with torch.no_grad(), \
+                    _patched(moe_mod, "_apply_moe_sharded", counting):
+                _zero_counts()
+                t0 = time.perf_counter()
+                got_l, got_t = _greedy(
+                    lambda p, b, **k: pre(pre_p, b, **k),
+                    lambda p, c, t, i: dec(dec_p, c, t, i),
+                    None, prompts, SHARD_GEN, mcfg.vocab_size)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = {w.__name__: w.launches for w in WRAPPERS}
+            gap = max(_max_err(a, b) for a, b in zip(got_l, want_l))
+            tol = SERVE_TOL[arch]
+            check(all(_within(a, b, **tol) for a, b in zip(got_l, want_l))
+                  and all(torch.equal(a, b) for a, b in zip(got_t, want_t)),
+                  f"14c: the sharded prefill and decode within {tol} of the "
+                  f"unsharded ones, the same tokens: gap {gap}")
+            n_moe = mcfg.num_layers * (1 + SHARD_GEN)
+            k3 = counts["flash_attention"]
+            check(len(sharded_moe) == n_moe and k3 == mcfg.num_layers,
+                  f"14c: the expert-parallel MoE in every layer of every "
+                  f"step ({len(sharded_moe)} of {n_moe}) and K3 on the local "
+                  f"shards once a layer of the prefill ({k3} launches)")
+            out["flash_attention"] = k3
+            say("14c shard-serve", arch=arch, layers=mcfg.num_layers,
+                d_model=mcfg.d_model, experts=mcfg.moe.num_experts,
+                params=sum(x.numel() for x in tree_leaves(mparams)),
+                mesh="1x1", rules="fsdp_tp", decode_layout=layout,
+                batch=SERVE_BATCH, prompt=SHARD_PROMPT, gen=SHARD_GEN,
+                sharded_moe_calls=len(sharded_moe),
+                flash_attention_launches=k3, max_logit_gap=gap,
+                tokens_equal="yes", wall_s=f"{wall:.3f}")
+            del mparams, pre_p, dec_p, api
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
 
 
 def _ptxas(name: str) -> list:
@@ -2707,6 +2963,10 @@ def main() -> int:
         prompt=WHISPER_PROMPT)["flash_attention"]
     kernels["flash_attention"]["launches"] = k3_launches
     kernels["adagrad"]["launches"] += phase_train_zoo()
+    sharded = phase_sharded()
+    kernels["adagrad"]["launches"] += sharded["adagrad"]
+    kernels["server_step"]["launches"] += sharded["server_step"]
+    kernels["flash_attention"]["launches"] += sharded["flash_attention"]
     print(_smi(), flush=True)          # again beside the numbers it qualifies
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -14,9 +14,11 @@ strategies, and the baselines it is compared against (port of
                            features while the backbone's backward pass uses
                            a *stale* head copy refreshed every K steps.
   * ``fsdp_tp``, ``split_server_sharded`` — the JAX package's sharded
-                           mappings of ``dp_full`` and ``split_concurrent``;
-                           on one device only their sharding rules differ,
-                           so here they take those steps.
+                           mappings of ``dp_full`` and ``split_concurrent``:
+                           only their sharding rules differ, so here they
+                           take those steps (on a mesh, the step builders
+                           of ``launch/steps.py`` place them by the
+                           rules).
 
 The JAX package runs a step under one ``jit``, where XLA may overlap the
 server's head update with the clients' backward pass.  Here a step runs

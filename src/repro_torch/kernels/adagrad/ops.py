@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.adagrad.ref import adagrad_ref
-from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: leaves a launch takes (kernel.cu's kMaxLeaves)
@@ -31,6 +31,7 @@ def _check(p, g, acc) -> None:
     for name, t in (("p", p), ("g", g), ("acc", acc)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        refuse_dtensor(name, t)
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, p on {p.device}")
         if not t.is_contiguous():

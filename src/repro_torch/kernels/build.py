@@ -123,6 +123,21 @@ def library(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
+def refuse_dtensor(name: str, t) -> None:
+    """Raise ``TypeError`` for a DTensor.  A kernel reads a tensor's
+    pointer with the shape it is given, and a DTensor's pointer is its
+    local shard's: launched with the global shape, the kernel would read
+    out of bounds.  Callers pass local shards (``to_local()``), and only
+    along dimensions where the kernel's work is independent."""
+    if isinstance(t, torch.Tensor) and type(t) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name} is a DTensor {tuple(t.shape)} placed "
+                f"{tuple(t.placements)}; the kernels take plain tensors: "
+                f"pass its local shard")
+
+
 def runs_kernel(device: torch.device, kernel: str) -> bool:
     """The dispatch rule of every wrapper: True for a CUDA device (launch
     the kernel), False for the CPU (run the plain version); any other
@@ -153,4 +168,4 @@ def launch(wrapper, name: str, entry: str, argtypes: list,
 
 
 __all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "launch",
-           "library", "log_path", "runs_kernel"]
+           "library", "log_path", "refuse_dtensor", "runs_kernel"]

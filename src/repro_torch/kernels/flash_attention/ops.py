@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
@@ -30,6 +30,7 @@ def _check(q, k, v, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        refuse_dtensor(name, t)
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
 from repro_torch.kernels.mamba.ref import mamba_scan_ref
 
 D_STATES = (8, 16, 32)
@@ -29,6 +29,7 @@ def _check(dt, x, b_t, c_t, a, h0) -> None:
     for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        refuse_dtensor(name, t)
         if t.device != dt.device:
             raise ValueError(f"{name} is on {t.device}, dt on {dt.device}")
         if not t.is_contiguous():

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
 from repro_torch.kernels.rwkv6.ref import wkv_ref
 
 HEAD_DIMS = (32, 64)
@@ -28,6 +28,7 @@ def _check(r, k, v, w, u, s0) -> None:
     for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        refuse_dtensor(name, t)
         if t.device != r.device:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
         if not t.is_contiguous():

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, runs_kernel
+from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
 from repro_torch.kernels.server_step.ref import server_step_ref
 
 #: Members a call takes (kernel.cu instantiates 1..8 and loops beyond).
@@ -36,6 +36,7 @@ def _check(p, g_stack, acc, coeffs) -> int:
     for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        refuse_dtensor(name, t)
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != p.device:

@@ -1,14 +1,102 @@
-"""Run-level config surgery (port of the single-device part of
-``repro.launch.steps``).  The rest of that module builds sharded step
-functions, which come with sharding (ROADMAP.md, Queue 1 item 7)."""
+"""Step builders (port of ``repro.launch.steps``): turn (arch config, run
+config, mesh) into step functions whose every argument leaf is placed on
+a torch ``DeviceMesh`` by its logical axes, for training, prefill and
+decode.
+
+The JAX package hands its builders' functions to ``jax.jit`` with
+``in_shardings``; here a :class:`StepBundle` distributes each state,
+batch, parameter and cache leaf as a DTensor with the placements its
+logical axes resolve to under the run's rules (``make_rules``), then runs
+the eager step on the DTensors under a :class:`ShardCtx`, where
+``shard_act`` redistributes the activations.  Tensors the model makes
+itself (positions, masks, zeros) count as replicated
+(``implicit_replication``).  Sharding never changes what a step computes:
+a sharded step gives its unsharded step's numbers, up to the order of
+floating-point sums.  The JAX bundles' ``.lower()`` (the XLA dry-run)
+comes with the dry-run tooling (ROADMAP.md, Queue 1 item 8).
+"""
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
-from repro_torch.configs.base import ArchConfig, InputShape
+import torch
+
+from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
+from repro_torch.core.split_parallel import (TrainState, init_prev_features,
+                                             make_train_step, split_params)
+from repro_torch.models.model import build_model
+from repro_torch.optim import get_optimizer
+from repro_torch.sharding.rules import rules_for_strategy
+from repro_torch.sharding.spec import (ShardCtx, axes_tree, axis_sizes,
+                                       is_dtensor, map_axes, placements,
+                                       to_pspec, use_shard_ctx, values_tree)
+from repro_torch.tree import tree_map
 
 LONG_CONTEXT_WINDOW = 8192  # sliding window used by full-attention archs
                             # for the long_500k shape
+
+_SPLIT_CONCURRENT = ("split_concurrent", "split_server_sharded")
+
+
+# ---------------------------------------------------------------------------
+# Shape-aware rule adjustment
+# ---------------------------------------------------------------------------
+
+
+def resolve_decode_layout(cfg: ArchConfig, mesh, layout: str) -> str:
+    """Resolve "auto" ONCE against the full-size config (reduced-depth
+    runs must inherit the same concrete layout)."""
+    if layout != "auto":
+        return layout
+    per_shard = cfg.param_count() * 2 / axis_sizes(mesh)["model"]
+    return "replicated_batch" if per_shard > 2 * 2**30 else "batch_sharded"
+
+
+def make_rules(strategy: str, mesh, shape: InputShape,
+               global_batch: int | None = None,
+               decode_layout: str = "batch_sharded",
+               cfg: ArchConfig | None = None) -> dict:
+    """Strategy rules specialised to the input shape, as the JAX
+    package's ``make_rules``.
+
+    * decode: query heads are replicated and the KV cache is sharded along
+      its sequence dim over 'model' (plus 'data' too when the batch does
+      not occupy the data axis) — the distributed flash-decode layout.
+      ``decode_layout="replicated_batch"`` also replicates the batch over
+      the data axes, so that weights sharded along their contraction dim
+      (FSDP) stay resident; "auto" picks it when the bf16 weight bytes
+      per model shard exceed 2 GiB.
+    * any shape: drop 'batch' sharding when the global batch doesn't
+      divide the data axes."""
+    sizes = axis_sizes(mesh)
+    names = tuple(sizes)
+    rules = dict(rules_for_strategy(strategy, names))
+    b = global_batch or shape.global_batch
+    data_size = 1
+    for a in ("pod", "data"):
+        if a in sizes:
+            data_size *= sizes[a]
+    batch_shardable = b % data_size == 0
+    if not batch_shardable:
+        rules["batch"] = None
+    if shape.kind == "decode":
+        layout = decode_layout
+        if layout == "auto":
+            layout = "batch_sharded"
+            if cfg is not None:
+                per_shard = cfg.param_count() * 2 / sizes["model"]
+                if per_shard > 2 * 2**30:
+                    layout = "replicated_batch"
+        rules["heads"] = None
+        if layout == "replicated_batch":
+            rules["batch"] = None
+            batch_shardable = False
+        kv = ("data", "model") if not batch_shardable else ("model",)
+        kv = tuple(a for a in kv if a in names)
+        rules["kv_seq"] = kv[0] if len(kv) == 1 else kv
+    return rules
 
 
 def arch_for_run(cfg: ArchConfig, shape: InputShape,
@@ -23,4 +111,314 @@ def arch_for_run(cfg: ArchConfig, shape: InputShape,
     return cfg
 
 
-__all__ = ["LONG_CONTEXT_WINDOW", "arch_for_run"]
+# ---------------------------------------------------------------------------
+# Axes trees for states / batches / caches
+# ---------------------------------------------------------------------------
+
+
+def _shape_of(spec) -> tuple:
+    """A leaf's shape: of a tensor, or of the port's ``(shape, dtype)``
+    batch-spec entry."""
+    shape = getattr(spec, "shape", None)
+    return tuple(spec[0] if shape is None else shape)
+
+
+def batch_axes(batch_spec: dict) -> dict:
+    """Logical axes for a batch tree: leading dim "batch", rest unsharded."""
+    return {k: ("batch",) + (None,) * (len(_shape_of(v)) - 1)
+            for k, v in batch_spec.items()}
+
+
+_CACHE_AXES_BY_KEY = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "pos": ("layers", "kv_seq"),
+    "cross_k": ("layers", "batch", None, "kv_heads", None),
+    "cross_v": ("layers", "batch", None, "kv_heads", None),
+    "ssm": ("layers", None, "batch", "mamba", None),
+    "conv": ("layers", None, "batch", None, "mamba"),
+    "wkv": ("layers", "batch", "rwkv_head", None, None),
+    "shift_tm": ("layers", "batch", None),
+    "shift_cm": ("layers", "batch", None),
+}
+
+
+def cache_axes(cache_spec: dict) -> dict:
+    """Logical axes for every decode-cache entry present in the tree."""
+    return {k: _CACHE_AXES_BY_KEY[k] for k in cache_spec}
+
+
+def opt_state_axes(opt_name: str, params_axes):
+    """Optimizer-state axes tree mirroring the params' axes."""
+    if opt_name == "adagrad":
+        return {"acc": params_axes}
+    if opt_name == "adamw":
+        return {"m": params_axes, "v": params_axes, "t": ()}
+    if opt_name == "sgd":
+        return {}
+    raise KeyError(opt_name)
+
+
+def train_state_axes(api, opt_name: str, strategy: str,
+                     batch_spec: dict) -> TrainState:
+    """Logical-axes TrainState matching what ``init_state`` will build
+    (the parameters' axes read from an init on the meta device)."""
+    p_axes = axes_tree(api.init(None))
+    if strategy in ("dp_full", "fsdp_tp"):
+        return TrainState(
+            params=p_axes, head={}, head_stale={},
+            opt_state=opt_state_axes(opt_name, p_axes), head_opt_state={},
+            prev_features=(), prev_labels=(), prev_mask=(), step=())
+    backbone_axes, head_axes = split_params(p_axes)
+    concurrent = strategy in _SPLIT_CONCURRENT
+    feats = ("batch", None, None) if concurrent else ()
+    lbl = ("batch", None) if concurrent else ()
+    return TrainState(
+        params=backbone_axes, head=head_axes, head_stale=head_axes,
+        opt_state=opt_state_axes(opt_name, backbone_axes),
+        head_opt_state=opt_state_axes(opt_name, head_axes),
+        prev_features=feats, prev_labels=lbl, prev_mask=lbl, step=())
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _as_tree(x):
+    """A TrainState as a dict of its fields (other trees as they are)."""
+    return vars(x) if isinstance(x, TrainState) else x
+
+
+def _from_tree(like, tree):
+    return TrainState(**tree) if isinstance(like, TrainState) else tree
+
+
+def placement_tree(axes, spec, rules: dict, mesh):
+    """Placements for every leaf of ``spec`` (tensors, or ``(shape,
+    dtype)`` batch-spec entries) from its logical ``axes`` under
+    ``rules``; ``None`` for a 0-d leaf or an empty slot (left as given:
+    the host step counter, adamw's count)."""
+
+    def one(ax, leaf):
+        if isinstance(leaf, torch.Tensor) or (
+                isinstance(leaf, tuple) and len(leaf) == 2
+                and isinstance(leaf[1], torch.dtype)):
+            shape = _shape_of(leaf)
+            if len(shape):
+                return placements(to_pspec(ax, rules, mesh=mesh,
+                                           shape=shape), mesh)
+        return None
+
+    return _from_tree(axes, map_axes(one, _as_tree(axes), _as_tree(spec)))
+
+
+def _place_leaf(x, mesh, pl):
+    """One leaf on ``mesh`` with placements ``pl``: a plain tensor is
+    distributed from this rank's copy (every rank holds the same whole
+    tensor, made from the same seed), a DTensor redistributed when its
+    placements differ."""
+    if pl is None:
+        return x
+    if is_dtensor(x):
+        return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.to(mesh.device_type), mesh, pl,
+                             src_data_rank=None)
+
+
+def place(tree, pls, mesh):
+    """``tree`` with each tensor leaf placed by the matching entry of the
+    placement tree ``pls`` (see :func:`placement_tree`)."""
+
+    from torch.distributed.tensor import Placement
+
+    def walk(x, pl):
+        if isinstance(pl, dict):
+            return {k: walk(x[k], pl[k]) for k in pl}
+        if isinstance(pl, (list, tuple)) and not (
+                pl and all(isinstance(q, Placement) for q in pl)):
+            if not isinstance(x, (list, tuple)):
+                return x                     # an empty slot's () or None
+            return type(x)(walk(a, b) for a, b in zip(x, pl))
+        return _place_leaf(x, mesh, pl)
+
+    return _from_tree(tree, walk(_as_tree(tree), _as_tree(pls)))
+
+
+# ---------------------------------------------------------------------------
+# Bundles
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StepBundle:
+    """Everything needed to run one step kind on a mesh.
+
+    ``fn`` is the eager step on its arguments; ``args_spec`` holds
+    example arguments (on the meta device: shapes and dtypes alone) and
+    ``in_placements`` the placement tree of each.  Calling the bundle
+    places its arguments (:meth:`place`) and runs ``fn`` under the run's
+    :class:`ShardCtx`.  ``init`` (train) makes the initial state:
+    ``init(generator=None, *, params=None, batch=None)``."""
+
+    fn: Callable
+    args_spec: tuple
+    in_placements: tuple
+    rules: dict
+    mesh: Any
+    api: Any
+    cfg: ArchConfig
+    init: Optional[Callable] = None
+
+    def place(self, *args) -> tuple:
+        """Every tensor leaf of ``args`` as a DTensor placed by its spec."""
+        return tuple(place(a, pl, self.mesh)
+                     for a, pl in zip(args, self.in_placements))
+
+    def __call__(self, *args, **kw):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        args = self.place(*args)
+        with use_shard_ctx(ShardCtx(self.mesh, self.rules)), \
+                implicit_replication():
+            return self.fn(*args, **kw)
+
+
+def _meta(shape_dtype) -> torch.Tensor:
+    shape, dtype = shape_dtype
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def _cast_float(tree, dtype):
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, tree)
+
+
+def _params_spec(api, dtype):
+    return _cast_float(values_tree(api.init(None)), dtype)
+
+
+def train_parts(cfg: ArchConfig, run: RunConfig, shape: InputShape, *,
+                global_batch: int | None = None):
+    """The model, state initialiser and step of a training run, on one
+    device or (through :func:`build_train_step`) on a mesh: ``(api,
+    init_all, step_fn)``.  ``init_all(generator=None, *, params=None,
+    batch=None)`` makes the initial state, the feature buffers of a
+    concurrent split strategy included (from ``batch``, or from
+    ``shape``'s batch on the meta device).  The adagrad optimizer runs
+    K2."""
+    cfg = arch_for_run(cfg, shape, run.strategy)
+    dtype = getattr(torch, run.compute_dtype)
+    api = build_model(cfg, compute_dtype=dtype, remat=run.remat,
+                      loss_chunks=run.loss_chunks)
+    kw = {"use_kernel": True} if run.optimizer == "adagrad" else {}
+    opt = get_optimizer(run.optimizer, run.learning_rate,
+                        adagrad_beta=run.adagrad_beta,
+                        weight_decay=run.weight_decay, **kw)
+    init_state, step_fn = make_train_step(
+        api, opt, strategy=run.strategy,
+        head_sync_period=run.head_sync_period, grad_accum=run.grad_accum)
+
+    def init_all(generator=None, *, params=None, batch=None):
+        state = init_state(generator, params=params)
+        if run.strategy in _SPLIT_CONCURRENT:
+            if batch is None:
+                batch = {k: _meta(v) for k, v in api.batch_spec(
+                    shape, global_batch=global_batch).items()}
+            state = init_prev_features(state, api, batch, dtype=dtype)
+        return state
+
+    return api, init_all, step_fn
+
+
+def build_train_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
+                     mesh, *, global_batch: int | None = None) -> StepBundle:
+    """The training step on ``mesh``: ``bundle(state, batch) -> (state,
+    metrics)``, :func:`train_parts`'s step with every state and batch leaf
+    placed; K2 runs on each leaf's local shard."""
+    api, init_all, step_fn = train_parts(cfg, run, shape,
+                                         global_batch=global_batch)
+    batch_spec = api.batch_spec(shape, global_batch=global_batch)
+    rules = make_rules(run.strategy, mesh, shape, global_batch)
+    state_spec = init_all()
+    if run.param_dtype != "float32":
+        state_spec = dataclasses.replace(state_spec, **{
+            k: _cast_float(v, getattr(torch, run.param_dtype))
+            for k, v in vars(state_spec).items()})
+    st_axes = train_state_axes(api, run.optimizer, run.strategy, batch_spec)
+    in_pl = (placement_tree(st_axes, state_spec, rules, mesh),
+             placement_tree(batch_axes(batch_spec), batch_spec, rules, mesh))
+    return StepBundle(step_fn, (state_spec, batch_spec), in_pl, rules, mesh,
+                      api, api.cfg, init=init_all)
+
+
+def build_prefill_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
+                       mesh, *, global_batch: int | None = None) -> StepBundle:
+    """The prefill step on ``mesh``: ``bundle(params, batch, *,
+    cache_len=None) -> (logits, cache)``; K3 runs on each rank's batch and
+    head shard, and the cache comes back replicated (the decode step
+    places it by its own layout)."""
+    cfg = arch_for_run(cfg, shape, run.strategy)
+    dtype = getattr(torch, run.compute_dtype)
+    api = build_model(cfg, compute_dtype=dtype, remat=False)
+    batch_spec = api.batch_spec(shape, global_batch=global_batch)
+    rules = make_rules(run.strategy, mesh, shape, global_batch)
+    params_spec = _params_spec(api, dtype)
+    p_axes = axes_tree(api.init(None))
+    in_pl = (placement_tree(p_axes, params_spec, rules, mesh),
+             placement_tree(batch_axes(batch_spec), batch_spec, rules, mesh))
+
+    def fn(params, batch, **kw):
+        return api.prefill(params, batch, **kw)
+
+    return StepBundle(fn, (params_spec, batch_spec), in_pl, rules, mesh,
+                      api, cfg)
+
+
+def build_decode_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
+                      mesh, *, global_batch: int | None = None) -> StepBundle:
+    """The one-token decode step on ``mesh``: ``bundle(params, cache,
+    token, index) -> (logits, cache)``, the cache placed by the decode
+    layout's rules (its sequence sharded over ``model``, or over
+    ``("data", "model")`` with the batch replicated) and updated in place
+    on each rank's shard."""
+    cfg = arch_for_run(cfg, shape, run.strategy)
+    dtype = getattr(torch, run.compute_dtype)
+    api = build_model(cfg, compute_dtype=dtype, remat=False)
+    b = global_batch or shape.global_batch
+    rules = make_rules(run.strategy, mesh, shape, global_batch,
+                       decode_layout=run.decode_layout, cfg=cfg)
+    cache_spec = api.init_cache(b, shape.seq_len, device="meta")
+    params_spec = _params_spec(api, dtype)
+    p_axes = axes_tree(api.init(None))
+    token_spec = ((b, 1), torch.int32)
+    in_pl = (placement_tree(p_axes, params_spec, rules, mesh),
+             placement_tree(cache_axes(cache_spec), cache_spec, rules, mesh),
+             placement_tree(("batch", None), token_spec, rules, mesh),
+             None)
+
+    def fn(params, cache, token, index):
+        return api.decode_step(params, cache, token, index)
+
+    return StepBundle(fn, (params_spec, cache_spec, token_spec, 0), in_pl,
+                      rules, mesh, api, cfg)
+
+
+def build_step(cfg: ArchConfig, run: RunConfig, shape: InputShape, mesh,
+               **kw) -> StepBundle:
+    """Dispatch to the train/prefill/decode builder by ``shape.kind``."""
+    if shape.kind == "train":
+        return build_train_step(cfg, run, shape, mesh, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, run, shape, mesh, **kw)
+    if shape.kind == "decode":
+        return build_decode_step(cfg, run, shape, mesh, **kw)
+    raise ValueError(shape.kind)
+
+
+__all__ = ["LONG_CONTEXT_WINDOW", "StepBundle", "arch_for_run", "batch_axes",
+           "build_decode_step", "build_prefill_step", "build_step",
+           "build_train_step", "cache_axes", "make_rules", "opt_state_axes",
+           "place", "placement_tree", "resolve_decode_layout",
+           "train_parts", "train_state_axes"]

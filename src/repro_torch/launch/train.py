@@ -1,5 +1,11 @@
 """Training driver: LM training with the paper's split strategies, the
-port of ``repro.launch.train`` on one device.
+port of ``repro.launch.train``, on one device or on a ``(data, model)``
+device mesh.
+
+With ``--data-par D --model-par M`` (D x M > 1) the run is sharded: start
+D x M ranks with ``torchrun`` (one card a rank on ``cuda``; gloo ranks on
+the CPU); every rank makes the same batches and init from the seed, and
+the step builder places them on the mesh (``launch/steps.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
@@ -8,6 +14,10 @@ Usage:
       --smoke --steps 6 --device cpu                  # anywhere
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
       --smoke --steps 6 --lr 0.1 --compute-dtype bfloat16 --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen3-4b --smoke --steps 3 \
+      --batch 4 --seq 16 --strategy fsdp_tp --data-par 2 --model-par 2 \
+      --device cpu                                    # a 2x2 gloo mesh
 """
 from __future__ import annotations
 
@@ -19,26 +29,49 @@ import torch
 
 from repro_torch.configs.base import (InputShape, RunConfig, get_arch_config,
                                       get_smoke_config)
-from repro_torch.core.split_parallel import (init_prev_features,
-                                             make_train_step, merge_params)
+from repro_torch.core.split_parallel import merge_params
 from repro_torch.data import TicketDataLoader, make_lm_batch
 from repro_torch.data.synthetic import InlineWorker
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import arch_for_run
-from repro_torch.models.model import build_model
-from repro_torch.optim import get_optimizer
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import build_train_step, train_parts
+from repro_torch.sharding.spec import is_dtensor
+from repro_torch.tree import tree_map
+
+
+def _whole(x):
+    """A leaf gathered whole (a collective: every rank must call it)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
 
 def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
-               log_every: int = 10, checkpoint_path=None, device="cuda"):
+               mesh=None, log_every: int = 10, checkpoint_path=None,
+               device="cuda"):
     """Train ``cfg`` for ``steps`` on synthetic LM batches with the
     strategy named in ``run``; returns (per-step losses, final state).
 
     Params are f32 and the model computes in ``run.compute_dtype``, as the
-    JAX package's ``train_loop``; the adagrad optimizer runs its kernel
+    JAX package's ``train_loop``; the model, init and step are
+    ``train_parts``'s, with or without a mesh, so ``run.grad_accum`` and
+    ``run.loss_chunks`` apply as in the step builders (the JAX
+    ``train_loop`` reads neither).  The adagrad optimizer runs its kernel
     (K2) on the card and its plain version on the CPU.  The batches are
     tokens alone (``make_lm_batch``), so the ``vlm`` and ``encdec``
     families, whose batches also carry patches or frames, are refused:
-    they train through ``make_train_step`` with those in the batch."""
+    they train through ``make_train_step`` with those in the batch.
+
+    ``mesh`` (a ``DeviceMesh`` on ``device``'s type, e.g.
+    ``make_local_mesh``): every rank makes the same init and batches, and
+    ``build_train_step`` wraps the same step to place the state and each
+    batch on the mesh by the run's rules; the returned state is of
+    DTensors.
+    Only rank 0 logs and writes the checkpoint, gathered whole on every
+    rank."""
     dev = resolve_device(device)
     if cfg.family in ("vlm", "encdec"):
         raise ValueError(
@@ -47,17 +80,13 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
             f"{'patches' if cfg.family == 'vlm' else 'frames'}; the JAX "
             f"package's train_loop fails on it too (KeyError). Train it "
             f"through make_train_step with them in the batch")
-    dtype = getattr(torch, run.compute_dtype)
     shape = InputShape("custom", seq, batch, "train")
-    cfg = arch_for_run(cfg, shape, run.strategy)
-    api = build_model(cfg, compute_dtype=dtype, remat=run.remat)
-    kw = {"use_kernel": True} if run.optimizer == "adagrad" else {}
-    opt = get_optimizer(run.optimizer, run.learning_rate,
-                        adagrad_beta=run.adagrad_beta,
-                        weight_decay=run.weight_decay, **kw)
-    init_state, step_fn = make_train_step(
-        api, opt, strategy=run.strategy,
-        head_sync_period=run.head_sync_period)
+    if mesh is None:
+        api, init_all, step_fn = train_parts(cfg, run, shape)
+    else:
+        step_fn = build_train_step(cfg, run, shape, mesh)
+        api, init_all = step_fn.api, step_fn.init
+    cfg = api.cfg
 
     rng = np.random.default_rng(run.seed)
     loader = TicketDataLoader(
@@ -72,25 +101,25 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
 
     generator = torch.Generator(device=dev)
     generator.manual_seed(run.seed)
-    state = init_state(generator)
     first = batch_at(0)
-    if run.strategy in ("split_concurrent", "split_server_sharded"):
-        state = init_prev_features(state, api, first, dtype=dtype)
+    state = init_all(generator, batch=first)
     losses = []
     t0 = time.time()
     for i in range(steps):
         b = first if i == 0 else batch_at(i)
         state, metrics = step_fn(state, b)
-        loss = float(metrics["loss"])
+        loss = float(_whole(metrics["loss"]))
         losses.append(loss)
-        if i % log_every == 0 or i == steps - 1:
+        if (i % log_every == 0 or i == steps - 1) and _rank() == 0:
             dt = time.time() - t0
             print(f"step {i:5d} loss {loss:.4f} "
                   f"({dt/(i+1):.3f}s/step)", flush=True)
     if checkpoint_path:
         from repro_torch.checkpoint import save_npz
-        save_npz(checkpoint_path, merge_params(state.params, state.head))
-        print(f"checkpoint -> {checkpoint_path}")
+        whole = tree_map(_whole, merge_params(state.params, state.head))
+        if _rank() == 0:
+            save_npz(checkpoint_path, whole)
+            print(f"checkpoint -> {checkpoint_path}")
     return losses, state
 
 
@@ -115,10 +144,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh = None
     if args.data_par * args.model_par > 1:
-        raise NotImplementedError(
-            "--data-par/--model-par > 1 (a device mesh) comes with a later "
-            "slice of the port (ROADMAP.md, Queue 1 item 7 (sharding))")
+        mesh = make_local_mesh(args.data_par, args.model_par, device=dev)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_arch_config(args.arch))
     run = RunConfig(arch=args.arch, strategy=args.strategy,
@@ -127,13 +155,23 @@ def main(argv=None):
                     compute_dtype=args.compute_dtype)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, _ = train_loop(cfg, run, steps=args.steps, batch=args.batch,
-                           seq=args.seq, checkpoint_path=args.checkpoint,
-                           device=dev)
+    rank = 0
+    try:
+        losses, _ = train_loop(cfg, run, steps=args.steps, batch=args.batch,
+                               seq=args.seq, mesh=mesh,
+                               checkpoint_path=args.checkpoint, device=dev)
+        rank = _rank()
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     where = "cpu"
     if dev.type == "cuda":
         where = (f"{torch.cuda.get_device_name(dev)}, peak "
                  f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if mesh is not None:
+        where += (f", rank {rank} of a {args.data_par}x{args.model_par} "
+                  f"mesh")
     print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}) on {where}")
     return losses
 

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer, stack_layers
-from repro_torch.sharding.spec import shard_act
+from repro_torch.models.transformer import layer, replicated, stack_layers
+from repro_torch.sharding.spec import is_dtensor, shard_act
 
 
 def _init_enc_block(generator, cfg):
@@ -172,6 +172,10 @@ def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
     cache = init_cache(cfg, b, cache_len or s, window=window, dtype=dtype,
                        device=enc_out.device)
     x = _embed_decoder(params, cfg, tokens, dtype)
+    if is_dtensor(x):
+        # under a mesh the cache is made whole on every rank; the decode
+        # step places it by its own layout
+        cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     if size < s:  # keep the trailing window, ring-ordered by position
@@ -183,11 +187,11 @@ def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
         x, (k, v), (ck, cv) = _dec_block(layer(params["dec_blocks"], i),
                                          cfg, x, enc_out,
                                          positions=positions)
-        cache["k"][i][:, slots] = k[:, s - len(keep):].to(dtype)
-        cache["v"][i][:, slots] = v[:, s - len(keep):].to(dtype)
-        cache["pos"][i][slots] = keep
-        cache["cross_k"][i] = ck
-        cache["cross_v"][i] = cv
+        L.write_rows(cache["k"][i], 1, slots, k[:, s - len(keep):])
+        L.write_rows(cache["v"][i], 1, slots, v[:, s - len(keep):])
+        L.write_rows(cache["pos"][i], 0, slots, keep)
+        L.write_rows(cache["cross_k"], 0, i, ck[None])
+        L.write_rows(cache["cross_v"], 0, i, cv[None])
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = L.lm_logits(params["head"], params["embed"], cfg, x[:, -1:])
     return logits, cache

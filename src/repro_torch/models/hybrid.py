@@ -24,8 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.mamba import _dims as mamba_dims
 from repro_torch.models.mamba import init_mamba, mamba_forward
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.models.transformer import layer, stack_layers
-from repro_torch.sharding.spec import Param, init_device
+from repro_torch.models.transformer import layer, replicated, stack_layers
+from repro_torch.sharding.spec import Param, init_device, is_dtensor
 
 
 def _period_layout(cfg):
@@ -196,6 +196,10 @@ def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
     b, s, _ = x.shape
     cache = init_cache(cfg, b, cache_len or s, window=window, dtype=dtype,
                        device=x.device)
+    if is_dtensor(x):
+        # under a mesh the cache is made whole on every rank; the decode
+        # step places it by its own layout
+        cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     if size < s:  # keep the trailing window, ring-ordered by position
@@ -207,11 +211,11 @@ def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
         x, _, (k, v), (ssm, conv) = _apply_period(
             layer(params["periods"], p), cfg, x, positions=positions,
             mode="prefill", window=window)
-        cache["k"][p][:, slots] = k[:, s - len(keep):].to(dtype)
-        cache["v"][p][:, slots] = v[:, s - len(keep):].to(dtype)
-        cache["pos"][p][slots] = keep
-        cache["ssm"][p] = ssm
-        cache["conv"][p] = conv.to(dtype)
+        L.write_rows(cache["k"][p], 1, slots, k[:, s - len(keep):])
+        L.write_rows(cache["v"][p], 1, slots, v[:, s - len(keep):])
+        L.write_rows(cache["pos"][p], 0, slots, keep)
+        L.write_rows(cache["ssm"], 0, p, ssm[None])
+        L.write_rows(cache["conv"], 0, p, conv[None])
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = L.lm_logits(params["head"], params["embed"], cfg, x[:, -1:])
     return logits, cache

@@ -25,7 +25,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.sharding.spec import Param, init_device, param, shard_act
+from repro_torch.sharding.collectives import (local_in, local_out,
+                                              shard_offset, sharding_axes,
+                                              sum_over)
+from repro_torch.sharding.spec import (Param, init_device, is_dtensor,
+                                       on_local_shards, param, shard_act)
 
 
 def checkpointed(fn, *args, enabled: bool = True):
@@ -193,6 +197,14 @@ def _proj_qkv(p, cfg, x, kv_input):
     return _proj_q(p, x), k, v
 
 
+def _out_proj(p, out, dtype):
+    """(B, Q, H, hd) heads through ``wo`` (H, hd, D): the sum over (H, hd)
+    as one product over the flattened heads (a DTensor sharded over the
+    heads flattens them, head dim first, where an einsum may not)."""
+    b, q, h, hd = out.shape
+    return out.reshape(b, q, h * hd) @ p["wo"].to(dtype).reshape(h * hd, -1)
+
+
 def _repeat_kv(k, num_heads: int):
     """(B, S, Kv, hd) -> (B, S, H, hd) by group broadcast (the
     differentiable full-sequence path; K3 reads the un-repeated k/v by
@@ -306,7 +318,7 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
         ck, cv = cache
         out = _attend(_proj_q(p, x), _repeat_kv(ck, cfg.num_heads),
                       _repeat_kv(cv, cfg.num_heads), None, scale)
-        y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+        y = _out_proj(p, out, x.dtype)
         return shard_act(y, "batch", "seq", None), cache
 
     is_cross = encoder_out is not None
@@ -323,15 +335,22 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
             k = apply_rope(k, cos, sin)
         slot = (cache_index % s_cache if window
                 else min(cache_index, s_cache - 1))
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        kv_pos[slot] = cache_index
+        if is_dtensor(ck):             # each rank writes its own shard
+            write_rows(ck, 1, slot, k)
+            write_rows(cv, 1, slot, v)
+            write_rows(kv_pos, 0, slot, torch.tensor([cache_index],
+                                                   dtype=kv_pos.dtype,
+                                                   device=kv_pos.device))
+        else:        # no index tensor to upload: decode is host-bound
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
+            kv_pos[slot] = cache_index
         m = (kv_pos >= 0) & (kv_pos <= cache_index)
         if window:
             m = m & (kv_pos > cache_index - window)
         out = _attend_grouped(q, ck.to(q.dtype), cv.to(q.dtype),
                               m[None, :].expand(q.shape[1], -1), scale)
-        y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+        y = _out_proj(p, out, x.dtype)
         return shard_act(y, "batch", "seq", None), (ck, cv, kv_pos)
 
     if positions.shape != (x.shape[1],):
@@ -347,15 +366,94 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     k = shard_act(k, "batch", "seq", "kv_heads", None)
     v = shard_act(v, "batch", "seq", "kv_heads", None)
     if differentiable:
-        out = _chunked_attend(q, _repeat_kv(k, cfg.num_heads),
-                              _repeat_kv(v, cfg.num_heads), scale,
-                              causal=causal, window=window)
+        # independent across batch and heads: under a mesh each rank
+        # attends with its own shard of both (DTensor cannot flatten a
+        # sharded head dim into the products' batch)
+        bh = {"batch": 0, "head": 2}
+        out, = on_local_shards(
+            lambda q_, k_, v_: (_chunked_attend(q_, k_, v_, scale,
+                                                causal=causal,
+                                                window=window),),
+            q, {0: "batch", 2: "head"},
+            [(q, bh), (_repeat_kv(k, cfg.num_heads), bh),
+             (_repeat_kv(v, cfg.num_heads), bh)], (bh,))
     else:
-        out = flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=causal, window=window)
+        out = flash_attention_sharded(q, k, v, causal=causal, window=window)
     out = shard_act(out, "batch", "seq", "heads", None)
-    y = torch.einsum("bqhe,hed->bqd", out, p["wo"].to(x.dtype))
+    y = _out_proj(p, out, x.dtype)
     return shard_act(y, "batch", "seq", None), (k, v)
+
+
+def flash_attention_sharded(q, k, v, *, causal: bool, window: int):
+    """K3 (``flash_attention``) on plain tensors as they are, and on
+    DTensors shard by shard: its work is independent across the batch and
+    the query heads, so q keeps its sharding of dims 0 (batch) and 2
+    (heads) and is replicated along the rest; k and v follow q's batch
+    sharding and are replicated along heads, and each rank passes the kv
+    heads its q-head block reads (head h reads kv head h // (Hq/Hkv)).
+    The output is placed as q.  A block of q heads that straddles kv-head
+    groups unevenly is not split: q's heads are gathered then."""
+    if not is_dtensor(q):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    group = hq // hkv
+    keep = (Shard(0), Shard(2))
+    q_pl = tuple(p if p in keep else Replicate() for p in q.placements)
+    n_head = 1
+    for j, p in enumerate(q_pl):
+        if p == Shard(2):
+            n_head *= mesh.size(j)
+    hl = hq // n_head
+    if hl % group and group % hl:
+        q_pl = tuple(Replicate() if p == Shard(2) else p for p in q_pl)
+        hl = hq
+    kv_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in q_pl)
+    q = q.redistribute(mesh, q_pl)
+    k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    h0 = shard_offset(q, 2)
+    lo, hi = h0 // group, (h0 + hl - 1) // group + 1
+    out = flash_attention(q.to_local().contiguous(),
+                          k.to_local()[:, :, lo:hi].contiguous(),
+                          v.to_local()[:, :, lo:hi].contiguous(),
+                          causal=causal, window=window)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
+
+
+def write_rows(dst, dim: int, rows, src) -> None:
+    """``dst`` along ``dim`` at the indices ``rows`` (a 1-D int tensor, or
+    an int for one row) takes ``src`` (``dst``'s shape with ``len(rows)``
+    along ``dim``), in place.  For a DTensor ``dst`` each rank writes the
+    rows that fall in its own shard of ``dim`` into its local tensor
+    (DTensor has no in-place rule for an indexed write into a sharded
+    dimension); ``src`` is first placed as ``dst`` is, whole along
+    ``dim``.  A plain ``dst`` and an int row take a slice: no index tensor
+    to upload."""
+    if not is_dtensor(dst):
+        at = (slice(rows, rows + 1) if isinstance(rows, int)
+              else rows.to(dst.device).long())
+        dst[(slice(None),) * dim + (at,)] = src.to(dst.dtype)
+        return
+    if isinstance(rows, int):
+        rows = torch.tensor([rows])
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if q == Shard(dim) else q for q in dst.placements)
+    if is_dtensor(src):
+        src = src.redistribute(mesh, pl).to_local()
+    else:
+        src = distribute_tensor(src, mesh, pl, src_data_rank=None).to_local()
+    local = dst.to_local()
+    lo = shard_offset(dst, dim)
+    hi = lo + local.shape[dim]
+    rows = rows.to(local.device).long()
+    mine = (rows >= lo) & (rows < hi)
+    if bool(mine.any()):
+        sel = mine.nonzero()[:, 0]
+        local.index_copy_(dim, rows[sel] - lo,
+                          src.index_select(dim, sel).to(local.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +504,32 @@ def init_embedding(generator, cfg):
 
 
 def embed_tokens(p, cfg, tokens, dtype):
-    y = p["table"][tokens.long()].to(dtype)
-    return shard_act(y, "batch", "seq", None)
+    """The table's rows of ``tokens``.  A table on a mesh is looked up
+    vocab-parallel, as GSPMD partitions the JAX package's gather (DTensor
+    has no rule for the indexing's backward, an indexed put, with the
+    table sharded): the table keeps its vocab shards and is gathered along
+    ``embed`` alone, each rank looks up its batch shard's tokens that fall
+    in its vocab shard (zero rows for the others), and the rows are summed
+    over the mesh axes that shard the vocab."""
+    table = p["table"]
+    if not is_dtensor(table):
+        return shard_act(table[tokens.long()].to(dtype), "batch", "seq",
+                         None)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = table.device_mesh
+    tok_pl = tuple(Shard(0) if q == Shard(0) else Replicate()
+                   for q in (tokens.placements if is_dtensor(tokens)
+                             else (Replicate(),) * mesh.ndim))
+    tab_pl = tuple(Shard(0) if q == Shard(0) and t != Shard(0)
+                   else Replicate() for q, t in zip(table.placements, tok_pl))
+    rows = local_in(table, mesh, tab_pl)
+    ids = local_in(tokens, mesh, tok_pl).long() - shard_offset(table, 0,
+                                                               tab_pl)
+    mine = (ids >= 0) & (ids < rows.shape[0])
+    y = rows[ids.clamp(0, rows.shape[0] - 1)] * mine[..., None]
+    y = sum_over(y, mesh, sharding_axes(tab_pl, mesh, 0))
+    return shard_act(local_out(y, mesh, tok_pl).to(dtype), "batch", "seq",
+                     None)
 
 
 def init_lm_head(generator, cfg):

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mamba.ops import mamba_scan
 from repro_torch.models.layers import chunked_scan
-from repro_torch.sharding.spec import Param, init_device, param, shard_act
+from repro_torch.sharding.spec import (Param, init_device, on_local_shards,
+                                       param, shard_act)
 
 SCAN_CHUNK = 256
 
@@ -114,9 +115,14 @@ def mamba_forward(p, cfg, x, *, state=None, differentiable=False):
                              h0, SCAN_CHUNK)
     else:
         a = -torch.exp(p["A_log"])                        # (d_inner, ds)
-        y, hT = mamba_scan(dt.contiguous(), xh.float().contiguous(),
-                           b_t.contiguous(), c_t.contiguous(),
-                           a.contiguous(), h0.contiguous())
+        # K4 takes plain tensors: under a mesh, each rank's batch and
+        # mamba (inner) shard
+        seq, bd = {"batch": 0, "inner": 2}, {"batch": 0}
+        y, hT = on_local_shards(
+            mamba_scan, dt, {0: "batch", 2: "inner"},
+            [(dt, seq), (xh.float(), seq), (b_t, bd), (c_t, bd),
+             (a, {"inner": 0}), (h0, {"batch": 0, "inner": 1})],
+            (seq, {"batch": 0, "inner": 1}))
 
     y = (y + xh.float() * p["D"]).to(x.dtype)
     y = shard_act(y * F.silu(z), "batch", "seq", "mamba")

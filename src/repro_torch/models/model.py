@@ -34,16 +34,59 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, hybrid, rwkv, transformer
-from repro_torch.sharding.spec import values_tree
+from repro_torch.sharding.collectives import (local_in, local_out, max_over,
+                                              shard_offset, sharding_axes,
+                                              sum_over)
+from repro_torch.sharding.spec import is_dtensor, values_tree
 from repro_torch.tree import as_tensor, tree_flatten
 
 def lm_loss(logits, labels, mask):
-    """Token-mean masked cross-entropy; labels: (B,S) int, mask (B,S)."""
+    """Token-mean masked cross-entropy; labels: (B,S) int, mask (B,S).
+    Logits on a mesh take :func:`_lm_loss_sharded`."""
+    if is_dtensor(logits):
+        return _lm_loss_sharded(logits, labels, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (lse - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+def _lm_loss_sharded(logits, labels, mask):
+    """:func:`lm_loss` of DTensor logits, vocab-parallel, as GSPMD
+    partitions the JAX package's (DTensor's ``gather`` along a sharded
+    dimension leaves a masked partial that it then fails to reduce): each
+    rank keeps its batch and vocab shard of the logits; the logsumexp
+    takes its max and its sum of exps over the mesh axes that shard the
+    vocab, and the label's logit comes from the shard that holds it."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    pl = tuple(q if q in (Shard(0), Shard(2)) else Replicate()
+               for q in logits.placements)
+    rows_pl = tuple(q if q == Shard(0) else Replicate() for q in pl)
+    vocab = sharding_axes(pl, mesh, 2)
+    lg = local_in(logits, mesh, pl).float()
+    m = max_over(lg.amax(-1), mesh, vocab)
+    lse = torch.log(sum_over(torch.exp(lg - m[..., None]).sum(-1), mesh,
+                             vocab)) + m
+    at = (local_in(labels, mesh, rows_pl).long()
+          - shard_offset(logits, 2, pl))
+    mine = (at >= 0) & (at < lg.shape[-1])
+    picked = torch.gather(lg, -1, at.clamp(0, lg.shape[-1] - 1)[..., None])
+    gold = sum_over(torch.where(mine, picked[..., 0], 0.0), mesh, vocab)
+    return _token_mean(lse - gold, mask, mesh, rows_pl)
+
+
+def _token_mean(nll, mask, mesh, rows_pl):
+    """The masked token mean of each rank's ``nll`` (its batch shard under
+    ``rows_pl``), its sums summed over the mesh axes that shard the
+    batch: a scalar DTensor, replicated."""
+    from torch.distributed.tensor import Replicate
+    batch = sharding_axes(rows_pl, mesh, 0)
+    msk = local_in(mask, mesh, rows_pl)
+    loss = (sum_over((nll * msk).sum(), mesh, batch)
+            / sum_over(msk.sum(), mesh, batch).clamp_min(1.0))
+    return local_out(loss, mesh, (Replicate(),) * mesh.ndim)
 
 
 def _chunk_logsumexp(m, ssum, gold, feats, w_c, labels, off: int):
@@ -67,7 +110,11 @@ def lm_loss_chunked(feats, head_w, labels, mask, *, n_chunks: int = 8):
     (running max and sum) and picks the label logit from whichever chunk
     owns it; each chunk runs under ``torch.utils.checkpoint``, so the
     backward pass recomputes its logits and peak logits memory is
-    V/n_chunks of :func:`lm_loss`'s.  feats: (B,S,D); head_w: (D,V)."""
+    V/n_chunks of :func:`lm_loss`'s.  feats: (B,S,D); head_w: (D,V).  A
+    head on a mesh takes :func:`_lm_loss_chunked_sharded`."""
+    if is_dtensor(head_w):
+        return _lm_loss_chunked_sharded(feats, head_w, labels, mask,
+                                        n_chunks)
     b, s, _ = feats.shape
     v = head_w.shape[1]
     if v % n_chunks:
@@ -85,6 +132,47 @@ def lm_loss_chunked(feats, head_w, labels, mask, *, n_chunks: int = 8):
     lse = torch.log(ssum.clamp_min(1e-30)) + m
     nll = (lse - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+def _lm_loss_chunked_sharded(feats, head_w, labels, mask, n_chunks: int):
+    """:func:`lm_loss_chunked` with the head on a mesh, vocab-parallel:
+    each rank runs the chunked online logsumexp over its own vocab shard
+    of the head (gathered along ``head_embed`` alone) in chunks of
+    V/``n_chunks`` columns, for its batch shard of ``feats``; the ranks'
+    running maxima and sums are then combined over the mesh axes that
+    shard the vocab, as :func:`_lm_loss_sharded` combines its shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = head_w.device_mesh
+    rows_pl = tuple(Shard(0) if q == Shard(0) else Replicate()
+                    for q in (feats.placements if is_dtensor(feats)
+                              else (Replicate(),) * mesh.ndim))
+    w_pl = tuple(Shard(1) if q == Shard(1) and r != Shard(0)
+                 else Replicate() for q, r in zip(head_w.placements, rows_pl))
+    vocab = sharding_axes(w_pl, mesh, 1)
+    f, w = local_in(feats, mesh, rows_pl), local_in(head_w, mesh, w_pl)
+    v = head_w.shape[1]
+    if v % n_chunks:
+        raise ValueError(f"vocab {v} is not a multiple of n_chunks "
+                         f"{n_chunks}")
+    vc = v // n_chunks
+    if w.shape[1] % vc:
+        raise ValueError(f"a vocab shard of {w.shape[1]} is not a multiple "
+                         f"of the chunk {vc}")
+    lo = shard_offset(head_w, 1, w_pl)
+    lab = local_in(labels, mesh, rows_pl)
+    b, s, _ = f.shape
+    m = torch.full((b, s), -1e30, dtype=torch.float32, device=f.device)
+    ssum = torch.zeros((b, s), dtype=torch.float32, device=f.device)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=f.device)
+    for c0 in range(0, w.shape[1], vc):
+        m, ssum, gold = checkpoint(_chunk_logsumexp, m, ssum, gold, f,
+                                   w[:, c0:c0 + vc], lab, lo + c0,
+                                   use_reentrant=False)
+    top = max_over(m, mesh, vocab)
+    lse = torch.log(sum_over(ssum * torch.exp(m - top), mesh,
+                             vocab).clamp_min(1e-30)) + top
+    return _token_mean(lse - sum_over(gold, mesh, vocab), mask, mesh,
+                       rows_pl)
 
 
 @dataclass

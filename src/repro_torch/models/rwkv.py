@@ -26,7 +26,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6.ops import wkv
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer, stack_layers
-from repro_torch.sharding.spec import Param, init_device, param, shard_act
+from repro_torch.sharding.spec import (Param, init_device, on_local_shards,
+                                       param, shard_act)
 
 SCAN_CHUNK = 256
 DECAY_LORA = 64
@@ -153,8 +154,14 @@ def time_mix_forward(p, cfg, x, *, state=None, differentiable=False):
                                tuple(heads_(z) for z in (r, k, v, w)), s0,
                                SCAN_CHUNK)
     else:
-        y, sT = wkv(heads_(r), heads_(k), heads_(v), heads_(w),
-                    p["u"].contiguous(), s0.contiguous())
+        # K5 takes plain tensors: under a mesh, each rank's batch and
+        # rwkv_head shard
+        bh, hh = {"batch": 0, "head": 2}, {"batch": 0, "head": 1}
+        rh = heads_(r)
+        y, sT = on_local_shards(
+            wkv, rh, {0: "batch", 2: "head"},
+            [(rh, bh), (heads_(k), bh), (heads_(v), bh), (heads_(w), bh),
+             (p["u"], {"head": 0}), (s0, hh)], (bh, hh))
     y = y.reshape(b, s, d).to(x.dtype)
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], h) * g
     out = y @ p["w_o"].to(x.dtype)

@@ -27,7 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.sharding.spec import Param, param
+from repro_torch.sharding.spec import Param, is_dtensor, param
 from repro_torch.tree import tree_flatten, tree_map
 
 
@@ -54,6 +54,15 @@ def stack_layers(init_one, n: int):
             dst[i].copy_(p.value)
     return stack_layer_axes(tdef.unflatten(
         [Param(v, p.axes) for v, p in zip(stacked, leaves)]))
+
+
+def replicated(tree, mesh):
+    """Every tensor of ``tree`` as a DTensor replicated on ``mesh`` (each
+    rank's copy is the same)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    rep = [Replicate()] * mesh.ndim
+    return tree_map(lambda t: distribute_tensor(t, mesh, rep,
+                                                src_data_rank=None), tree)
 
 
 def layer(blocks, i: int):
@@ -194,6 +203,10 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     cache_len = cache_len or s
     cache = init_cache(cfg, b, cache_len, window=window, dtype=dtype,
                        device=x.device)
+    if is_dtensor(x):
+        # under a mesh the cache is made whole on every rank; the decode
+        # step places it by its own layout
+        cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     if size < s:  # keep the trailing window, ring-ordered by position
@@ -204,9 +217,9 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     for i in range(cfg.num_layers):
         x, _, (k, v) = _apply_block(layer(params["blocks"], i), cfg, x,
                                     positions=positions, window=window)
-        cache["k"][i][:, slots] = k[:, s - len(keep):].to(dtype)
-        cache["v"][i][:, slots] = v[:, s - len(keep):].to(dtype)
-        cache["pos"][i][slots] = keep
+        L.write_rows(cache["k"][i], 1, slots, k[:, s - len(keep):])
+        L.write_rows(cache["v"][i], 1, slots, v[:, s - len(keep):])
+        L.write_rows(cache["pos"][i], 0, slots, keep)
     x = L.apply_norm(params["final_norm"], cfg, x)
     logits = L.lm_logits(params["head"], params["embed"], cfg, x[:, -1:])
     return logits, cache

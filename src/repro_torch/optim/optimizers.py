@@ -11,6 +11,13 @@ kernel in ``repro_torch/kernels/adagrad`` together: one launch a step for
 a tree of one dtype (the JAX package launches its Pallas kernel once a
 leaf), every leaf's result the same as its own launch would give.
 
+Under a mesh the leaves are DTensors.  The kernel takes plain tensors, so
+each leaf's update runs on its local shard (:func:`local_shards`): the
+gradient is first brought to the parameter's placements (a ``Partial()``
+gradient reduced), the accumulator likewise, and the results are wrapped
+back with the parameter's placements.  The other optimizers run their
+torch ops on the DTensors.
+
 Every optimizer has the JAX package's interface:
 ``Optimizer(init(params), update(grads, state, params) -> (params, state))``.
 Updates are functional: new tensors, the inputs left as they are.
@@ -23,6 +30,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.optim.adagrad_math import adagrad_leaf_update
+from repro_torch.sharding.spec import is_dtensor
 from repro_torch.tree import tree_flatten, tree_map
 
 
@@ -46,6 +54,34 @@ def _leafwise(one, n_out: int, params, *trees):
     return tuple(tdef.unflatten([o[i] for o in outs]) for i in range(n_out))
 
 
+def local_shards(p, *others):
+    """``(p, *others)`` as plain tensors for a kernel: for a DTensor ``p``,
+    its local shard, and each of ``others`` (its gradient, its optimizer
+    state) redistributed to ``p``'s placements first, so that a gradient
+    in a ``Partial()`` placement is reduced before the kernel reads it.
+    Plain tensors pass through."""
+    if not is_dtensor(p):
+        return (p, *others)
+    mesh, pl = p.device_mesh, tuple(p.placements)
+    out = [p.to_local()]
+    for t in others:
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+        out.append(t.to_local().contiguous())
+    return tuple(out)
+
+
+def like(p, local):
+    """``local`` (a shard computed from ``p``'s local shard) as a DTensor
+    placed as ``p`` is; plain when ``p`` is plain."""
+    if not is_dtensor(p):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              shape=p.shape, stride=p.stride(),
+                              run_check=False)
+
+
 def adagrad(lr: float, beta: float = 1.0, weight_decay: float = 0.0,
             use_kernel: bool = False) -> Optimizer:
     """The paper's modified AdaGrad.  ``beta`` is the paper's β."""
@@ -60,9 +96,14 @@ def adagrad(lr: float, beta: float = 1.0, weight_decay: float = 0.0,
     def update(grads, state, params):
         if use_kernel:
             flat_p, tdef = tree_flatten(params)
-            new_p, new_acc = adagrad_update_leaves(
+            loc = [local_shards(p, g, a) for p, g, a in zip(
                 flat_p, tdef.flatten_up_to(grads),
-                tdef.flatten_up_to(state["acc"]), **kw)
+                tdef.flatten_up_to(state["acc"]))]
+            new_p, new_acc = adagrad_update_leaves(
+                [x[0] for x in loc], [x[1] for x in loc],
+                [x[2] for x in loc], **kw)
+            new_p = [like(p, x) for p, x in zip(flat_p, new_p)]
+            new_acc = [like(p, x) for p, x in zip(flat_p, new_acc)]
             return tdef.unflatten(new_p), {"acc": tdef.unflatten(new_acc)}
         new_p, new_acc = _leafwise(
             lambda p, g, a: adagrad_leaf_update(p, g, a, **kw),

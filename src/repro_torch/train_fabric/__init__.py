@@ -6,8 +6,9 @@ Joins the port's ML stack (``repro_torch.models`` / ``.optim`` /
 (``repro_torch.core``): the round engine with K-of-N straggler barriers
 (:class:`FederatedTrainer`), the round loop (:class:`FederatedTrainingLoop`),
 the server step (tree reference or the fused CUDA kernel) and resumable
-round checkpoints in the paper's JSON+base64 model-file format.  The
-shard rebalancer is not ported yet.
+round checkpoints in the paper's JSON+base64 model-file format, and the
+shard rebalancer (:class:`Rebalancer`, a byte copy of the JAX package's)
+that the trainer's ``rebalancer=`` hook calls at each round boundary.
 """
 from repro_torch.train_fabric.checkpointing import (CHECKPOINT_FORMAT,
                                                     checkpoint_path,
@@ -16,6 +17,7 @@ from repro_torch.train_fabric.checkpointing import (CHECKPOINT_FORMAT,
                                                     save_round_checkpoint,
                                                     state_from_tree,
                                                     state_to_tree)
+from repro_torch.train_fabric.rebalancer import Migration, Rebalancer
 from repro_torch.train_fabric.round_engine import (STRAGGLER_POLICIES,
                                                    EmptyRoundError,
                                                    FederatedTrainer,
@@ -31,7 +33,8 @@ from repro_torch.train_fabric.server_step import (FusedServerStep,
 
 __all__ = [
     "CHECKPOINT_FORMAT", "EmptyRoundError", "FederatedTrainer",
-    "FederatedTrainingLoop", "FusedServerStep", "RoundResult",
+    "FederatedTrainingLoop", "FusedServerStep", "Migration", "Rebalancer",
+    "RoundResult",
     "STRAGGLER_POLICIES", "ServerStep", "TreeServerStep",
     "affinity_placement", "checkpoint_path", "latest_checkpoint",
     "load_round_checkpoint", "member_coeffs", "member_grad_norms",

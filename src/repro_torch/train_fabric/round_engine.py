@@ -6,9 +6,11 @@ port changes is where the arrays live.  The loop's ``TrainState`` lives on
 one device (``cuda`` unless the caller asks for ``cpu``); each round's
 weights are published to the fabric as a host numpy tree, because the
 fabric's delta registry and wire codec read leaves with ``np.asarray``;
-gradients come back as numpy and the server step uploads them.  SLO
-evaluation (``slos=``) waits for the port's copy of ``repro.obs``;
-``metrics=`` and ``rebalancer=`` are duck-typed as in the JAX package.
+gradients come back as numpy and the server step uploads them.  The
+round SLOs (``slos=``) are evaluated by the port's copy of ``repro.obs``
+(``repro_torch.obs.slo``) against the trainer's ``metrics=`` registry;
+``rebalancer=`` (``repro_torch.train_fabric.rebalancer``) is duck-typed
+as in the JAX package.
 
 The training fabric workload runs over the whole stack — sharded store,
 federation members, edge caches, cross-host transport:
@@ -133,6 +135,8 @@ class RoundResult:
     barrier_wait: float = 0.0       # clock time between K-of-N and close
     migrations: int = 0             # rebalancer moves at this boundary
     metrics: Optional[dict] = None  # registry snapshot, when trainer has one
+    slos: Optional[list] = None     # SLO evaluations at round close, when
+    #                                 the trainer holds an SloMonitor
     publish_deltas: dict = field(default_factory=dict)
     # per published static: the origin registry's delta view at publish
     # time ({"version", "leaves", "changed", "window"}) — ``changed``
@@ -145,6 +149,12 @@ class RoundResult:
     def complete(self) -> bool:
         """True when every shard's gradient arrived (nothing folded)."""
         return not self.stragglers
+
+    @property
+    def slo_ok(self) -> bool:
+        """True when no SLO breached at round close (vacuously true
+        when the trainer evaluates none)."""
+        return all(r["ok"] for r in self.slos) if self.slos else True
 
 
 class FederatedTrainer(RoundDriverLifetime):
@@ -162,7 +172,7 @@ class FederatedTrainer(RoundDriverLifetime):
     def __init__(self, distributor, *, task_name: str = "backbone_shard",
                  barrier_k=None, straggler_policy: str = "wait",
                  timeout: float = 60.0, stall_after: Optional[float] = None,
-                 rebalancer=None, metrics=None):
+                 rebalancer=None, metrics=None, slos=None):
         if straggler_policy not in STRAGGLER_POLICIES:
             raise KeyError(f"straggler_policy must be one of "
                            f"{STRAGGLER_POLICIES}, got {straggler_policy!r}")
@@ -206,6 +216,17 @@ class FederatedTrainer(RoundDriverLifetime):
             self._m_lost = metrics.counter(
                 "round.lost_tickets_total",
                 "Shard tickets abandoned un-arrived at a round timeout")
+        # declarative round-health objectives (repro_torch.obs.slo),
+        # evaluated at every round close against the trainer's registry;
+        # results land in RoundResult.slos and breaches emit slo.breach
+        # instants
+        self.slo_monitor = None
+        if slos:
+            if metrics is None:
+                raise ValueError("slos= requires metrics= (the monitor "
+                                 "evaluates against the registry)")
+            from repro_torch.obs.slo import SloMonitor
+            self.slo_monitor = SloMonitor(metrics, slos, tracer=self.tracer)
 
     # -- shard planning --------------------------------------------------------
 
@@ -440,6 +461,9 @@ class FederatedTrainer(RoundDriverLifetime):
                 self._m_reticketed.inc(reticketed)
             if stragglers:
                 self._m_folded.inc(len(stragglers))
+            if self.slo_monitor is not None:
+                out.slos = [r.as_dict() for r in
+                            self.slo_monitor.evaluate(ts=t_close)]
             out.metrics = self.metrics.snapshot()
         return out
 

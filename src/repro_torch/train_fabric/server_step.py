@@ -13,7 +13,9 @@ per-member gradients into the next round's weights:
     params' device, the member gradients into the rows of one pitched
     stack (:func:`gradient_stack`), and ``kernels/server_step`` (CUDA on
     the card, its plain version on the CPU) does clip-weighted mean +
-    accumulator + update in one pass.
+    accumulator + update in one pass.  With ``mesh=`` the flat buffer's
+    elements are split over the mesh's ``data_axis``: each rank runs the
+    kernel on its own contiguous block and the blocks are gathered back.
 
 Gradients may arrive as host numpy trees (from the wire) or as tensors;
 both steps move them to the params' device.  Both consume the same
@@ -178,13 +180,24 @@ class FusedServerStep(ServerStep):
     4x slower than a kept one, its pages faulted in at first write, and a
     page-locked buffer uploads as one DMA (PERF.md).  The upload is
     synchronous, so a round never overwrites a buffer the card still
-    reads."""
+    reads.
+
+    ``mesh`` (a ``DeviceMesh``; the JAX package's ``shard_map`` over the
+    flat rows): rank r of the ``data_axis`` takes the r-th block of
+    :func:`row_pitch` ``(ceil(n / ranks))`` elements (the last block may
+    be short or empty), uploads only its block of the gradient stack, runs
+    K1 on it on its own device, and the new parameters and accumulator
+    are all-gathered over the axis, so the caller keeps its one-device
+    view.  Every element's update is independent of the others, so the
+    result is bitwise the unsharded step's.  Every rank of the axis must
+    call :meth:`step` with the same round."""
 
     name = "fused"
 
     def __init__(self, opt: Optimizer, *, lr: float, beta: float = 1.0,
                  weight_decay: float = 0.0,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None, mesh=None,
+                 data_axis: str = "data"):
         if opt.name != "adagrad":
             raise ValueError(
                 f"FusedServerStep fuses the paper's modified AdaGrad; "
@@ -192,6 +205,7 @@ class FusedServerStep(ServerStep):
         self.opt = opt
         self.lr, self.beta, self.weight_decay = lr, beta, weight_decay
         self.clip_norm = clip_norm
+        self.mesh, self.data_axis = mesh, data_axis
         self._staging: Optional[torch.Tensor] = None
 
     def _staging_for(self, members: int, n: int, device) -> torch.Tensor:
@@ -213,11 +227,14 @@ class FusedServerStep(ServerStep):
         pf = _flat32(leaves_p)
         af = _flat32(tdef.flatten_up_to(opt_state["acc"])).to(dev)
         n = pf.numel()
-        gf = gradient_stack(grads, tdef, n, dev,
-                            self._staging_for(len(grads), n, dev))
-        po, ao = server_step_update(
-            pf, gf, af, coeffs.to(dev), lr=self.lr, beta=self.beta,
-            weight_decay=self.weight_decay)
+        if self.mesh is None:
+            gf = gradient_stack(grads, tdef, n, dev,
+                                self._staging_for(len(grads), n, dev))
+            po, ao = server_step_update(
+                pf, gf, af, coeffs.to(dev), lr=self.lr, beta=self.beta,
+                weight_decay=self.weight_decay)
+        else:
+            po, ao = self._step_rows(grads, tdef, pf, af, coeffs)
         new_p, new_a, off = [], [], 0
         for leaf in leaves_p:
             sz = leaf.numel()
@@ -225,3 +242,34 @@ class FusedServerStep(ServerStep):
             new_a.append(ao[off:off + sz].view(leaf.shape))
             off += sz
         return tdef.unflatten(new_p), {"acc": tdef.unflatten(new_a)}
+
+    def _step_rows(self, grads, tdef, pf, af, coeffs):
+        """K1 on this rank's block of the flat buffer, on the rank's own
+        device; the blocks all-gathered over ``data_axis`` and returned on
+        ``pf``'s device."""
+        import torch.distributed as dist
+        mesh, axis = self.mesh, self.data_axis
+        ranks = mesh.size(mesh.mesh_dim_names.index(axis))
+        r = mesh.get_local_rank(axis)
+        n = pf.numel()
+        block = row_pitch(-(-n // ranks))
+        lo, hi = min(r * block, n), min((r + 1) * block, n)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+        # the whole stack in host memory (the kept staging buffer when the
+        # gradients came from the host), then only this rank's columns
+        # uploaded
+        host = gradient_stack(grads, tdef, n, "cpu",
+                              self._staging_for(len(grads), n, dev))
+        po, ao = server_step_update(
+            pf[lo:hi].to(dev), host[:, lo:hi].to(dev), af[lo:hi].to(dev),
+            coeffs.to(dev), lr=self.lr, beta=self.beta,
+            weight_decay=self.weight_decay)
+        out = []
+        for t in (po, ao):
+            padded = torch.zeros(block, dtype=t.dtype, device=dev)
+            padded[:hi - lo] = t
+            parts = [torch.empty_like(padded) for _ in range(ranks)]
+            dist.all_gather(parts, padded, group=mesh.get_group(axis))
+            out.append(torch.cat(parts)[:n].to(pf.device))
+        return out

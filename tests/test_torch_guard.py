@@ -49,7 +49,9 @@ SLICE_MODULES = (
     "kernels.flash_attention.ops", "kernels.flash_attention.ref",
     "kernels.rwkv6.ops", "kernels.rwkv6.ref", "kernels.mamba.ops",
     "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid",
-    "launch.train", "launch.steps", "models.encdec")
+    "launch.train", "launch.steps", "models.encdec", "launch.mesh",
+    "sharding.rules", "obs.slo", "obs.fleet", "train_fabric.rebalancer",
+    "core.profiles", "core.project", "sharding.collectives")
 
 #: The modules the port carries as byte copies (the only change is
 #: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
@@ -60,7 +62,11 @@ COPIES = ("configs/paper_cnn.py", "core/wire.py", "core/tickets.py",
           "configs/internvl2_26b.py", "configs/jamba_1_5_large_398b.py",
           "configs/minitron_4b.py", "configs/qwen1_5_0_5b.py",
           "configs/qwen3_4b.py", "configs/qwen3_moe_30b_a3b.py",
-          "configs/rwkv6_1_6b.py", "configs/whisper_small.py")
+          "configs/rwkv6_1_6b.py", "configs/whisper_small.py",
+          "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+          "obs/collect.py", "obs/slo.py", "obs/fleet.py",
+          "core/profiles.py", "core/project.py",
+          "train_fabric/rebalancer.py", "sharding/rules.py")
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.MULTILINE)
 _IMPORT_MODULE = re.compile(r"(import_module\(f?[\"'])repro\.")

@@ -474,7 +474,10 @@ def test_train_cli_on_the_cpu_lowers_the_loss():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-par", "2"], "Queue 1 item 7")])
+    (["--data-par", "2"], "torchrun")])
 def test_train_cli_refuses_what_later_slices_bring(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh (``--data-par``/``--model-par``) needs its ranks: outside
+    ``torchrun``, with no process group, the CLI refuses it (the sharded
+    run itself is ``tests/test_torch_mesh.py``'s)."""
+    with pytest.raises(RuntimeError, match=match):
         train.main(["--smoke", "--steps", "1", "--device", "cpu"] + argv)
