@@ -119,7 +119,24 @@ Phases, one line each:
      at bf16 through ``train_loop`` as 9a (20 steps, K2 twice a step, the
      loss falling, params and accumulators f32), then one bf16 ``dp_full``
      step of the dense, ssm and encdec smoke configs on the card against
-     the host CPU within the CPU tests' bf16 training bars.
+     the host CPU within the CPU tests' bf16 training bars;
+ 14. the sharded paths on a 1x1 NCCL mesh: a. phase 9's step through
+     ``train_loop(mesh=)`` against the unsharded run; b. the FIG4 server
+     step row-sharded, bitwise; c. the qwen3-moe cut at 4 layers served
+     under ``fsdp_tp`` through the expert-parallel MoE;
+ 15. the dry-run against real steps: phase 9's ``split_concurrent`` step
+     and phase 6's prefill (f32) through ``python -m
+     repro_torch.launch.dryrun`` (meta device, a 1x1 shape-only mesh, a
+     subprocess each) and through the same bundles on a real 1x1 NCCL
+     mesh under the same accounting mode, each after one uncounted step:
+     product FLOPs equal (or within 1%, every op's difference printed),
+     K2's and K3's meta launches equal the card's, the dry-run's peak
+     within 15% of ``max_memory_allocated``, the step no faster than its
+     roofline bound;
+ 16. the four torch examples (``examples/torch_*.py``) at their smallest
+     flags, subprocesses on the card: each exits 0 and prints its kernel
+     launches (K2 for the quickstart and the training example, K5 for
+     serving, K1 for the simulator's ``--train``).
 
 The launch counts of each kernel are set to 0 just before the path that
 runs it and read just after.  The card's ``nvidia-smi`` name and power
@@ -154,14 +171,19 @@ from repro_torch.configs.paper_cnn import FIG2_CNN, FIG4_CNN  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.adagrad.ops import (  # noqa: E402
     MAX_LEAVES, adagrad_update, adagrad_update_leaves)
+from repro_torch.kernels.adagrad.ops import work as k2_work  # noqa: E402
 from repro_torch.kernels.adagrad.ref import adagrad_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import work as k3_work  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mamba.ops import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba.ops import work as k4_work  # noqa: E402
 from repro_torch.kernels.mamba.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6.ops import wkv  # noqa: E402
+from repro_torch.kernels.rwkv6.ops import work as k5_work  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
+from repro_torch.kernels.server_step.ops import work as k1_work  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     cnn, hybrid, layers, mamba, rwkv, transformer)
@@ -581,21 +603,22 @@ def _k1_timed_cases(n4: int) -> tuple:
                  ) + (("big_m4_pitched", K1_BIG_N, 4, True),)
 
 
+def _meta(*shape, dtype=torch.float32):
+    """A shape-only tensor, for a kernel's ``work`` (which reads shapes)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _k1_bound(n: int, members: int) -> tuple:
-    """Bytes: p, acc and M gradient rows read and p' and acc' written
-    once, and the M coefficients.  Operations: about 2M + 7 an element
-    (kernel.cu's header)."""
-    return _bound((members + 4) * 4 * n + 4 * members,
-                  (2 * members + 7) * n)
+    """K1's bound at n elements and M members, from its ``work``."""
+    flops, nbytes = k1_work(_meta(n), _meta(members, n), None, None)
+    return _bound(nbytes, flops)
 
 
 def _k2_bound(ps, gs) -> tuple:
-    """Bytes: p, g and acc read and p' and acc' written once.  Operations:
-    7 an element (g*g, the add into acc, beta + acc', its rsqrt, lr*g, the
-    product and the subtraction)."""
-    nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 8)
-                 for p, g in zip(ps, gs))
-    return _bound(nbytes, 7 * sum(p.numel() for p in ps))
+    """K2's bound over leaves ``ps`` with gradients ``gs``, from its
+    ``work``."""
+    flops, nbytes = k2_work(ps, gs)
+    return _bound(nbytes, flops)
 
 
 # --- 3b. attention (K3) and WKV (K5) against their plain versions -----------
@@ -610,37 +633,23 @@ def _bound(nbytes: int, flops: float, peak: float = PEAK_F32_FLOP_S) -> tuple:
 
 
 def _k3_bound(q, k, causal: bool = True) -> tuple:
-    """Bytes: q, k, v read and out written once.  Operations: the two
-    products over the (query, key) pairs this mask leaves visible
-    (positions aligned top-left, as the kernel's), on the route that meets
-    the bar: the tensor cores' TF32 in three passes for f32 inputs (hi/lo
-    split), in one pass for q.K^T and two for P V under bf16 (exact in
-    TF32).  Returns (ms, what bounds it, the operations' ms on the f32 CUDA
-    cores)."""
-    b, sq, hq, hd = q.shape
-    skv = k.shape[1]
-    if causal:    # query i sees keys 0..min(i, Skv - 1)
-        n = min(sq, skv)
-        pairs = n * (n + 1) // 2 + (sq - n) * skv
-    else:
-        pairs = sq * skv
-    flops = 4 * b * hq * hd * pairs
+    """K3's bound from its ``work`` (q, k, v read and out written once;
+    the two products over the visible pairs), its operations on the route
+    that meets the bar: the tensor cores' TF32 in three passes for f32
+    inputs (hi/lo split), in one pass for q.K^T and two for P V under bf16
+    (exact in TF32).  Returns (ms, what bounds it, the operations' ms on
+    the f32 CUDA cores)."""
+    flops, nbytes = k3_work(q, k, k, causal=causal)
     passes = 3 if q.dtype == torch.float32 else 1.5
-    ms, by = _bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                    passes * flops, PEAK_TF32_FLOP_S)
+    ms, by = _bound(nbytes, passes * flops, PEAK_TF32_FLOP_S)
     return ms, by, 1e3 * flops / PEAK_F32_FLOP_S
 
 
 def _k5_bound(r, s0) -> tuple:
-    """Bytes: r, k, v, w, u and s0 read and y and sT written once (all f32
-    here).  Operations: the function's least, not the 7 of the order the
-    kernel rounds in.  y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i is 2
-    per state element a step (a multiply and an add) plus 5 per column
-    (3 for the row sum, 2 to fold it in); S'_ij = w_i S_ij + k_i v_j is
-    3 per element."""
+    """K5's bound from its ``work``, for f32 decay and bonus beside r."""
     b, t, h, hd = r.shape
-    return _bound(4 * (5 * r.numel() + h * hd + 2 * s0.numel()),
-                  b * t * h * (5 * hd * hd + 5 * hd))
+    flops, nbytes = k5_work(r, r, r, _meta(*r.shape), _meta(h, hd), s0)
+    return _bound(nbytes, flops)
 
 
 def phase_lm_kernels(timer: ColdTimer) -> dict:
@@ -824,15 +833,9 @@ def phase_lm_kernels(timer: ColdTimer) -> dict:
 
 
 def _k4_bound(ins) -> tuple:
-    """Bytes: dt, x, b_t, c_t, a and h0 read and y and hT (f32) written
-    once.  Operations: 6 per state element a step (dt*a, da*h, dx*b, their
-    sum, h*c and its add into y) and 1 per channel a step (dx = dt*x); the
-    exps are not counted (kernel.cu notes their own limit)."""
-    dt, _, b_t, _, _, h0 = ins
-    b, t, di = dt.shape
-    nbytes = (sum(z.numel() * z.element_size() for z in ins)
-              + 4 * dt.numel() + 4 * h0.numel())
-    return _bound(nbytes, b * t * di * (6 * b_t.shape[2] + 1))
+    """K4's bound on its inputs ``ins``, from its ``work``."""
+    flops, nbytes = k4_work(*ins)
+    return _bound(nbytes, flops)
 
 
 def phase_mamba_kernel(timer: ColdTimer) -> dict:
@@ -2863,6 +2866,253 @@ def phase_sharded() -> dict:
     return out
 
 
+# --- 15. the dry-run against real steps --------------------------------------
+
+
+#: (name, arch, shape, batch, seq, the kernel on its path, its launches):
+#: phase 9's split_concurrent step and phase 6's prefill, at f32
+DRYRUN_CASES = (
+    ("train", TRAIN_ARCH, "train_4k", TRAIN_BATCH, TRAIN_SEQ, "adagrad", 2),
+    ("prefill", "qwen3-4b", "prefill_32k", SERVE_BATCH, SERVE_PROMPT,
+     "flash_attention", 36))
+#: the dry-run's peak bytes against the card's ``max_memory_allocated``,
+#: and its product FLOPs against the real step's, relative
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_FLOPS_TOL = 0.01
+
+
+def _start_dryruns(out_dir: str) -> dict:
+    """Each ``DRYRUN_CASES`` case through ``python -m
+    repro_torch.launch.dryrun`` (full depth, a 1x1 shape-only mesh, f32),
+    all at once, each in a process of its own: this process may hold a
+    real process group, beside which a fake one cannot live."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {}
+    for name, arch, shape, batch, seq, _, _ in DRYRUN_CASES:
+        path = os.path.join(out_dir, f"dryrun_{name}.jsonl")
+        procs[name] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "1x1", "--batch", str(batch),
+             "--seq", str(seq), "--compute-dtype", "float32",
+             "--full-depth", "--out", path], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _finish(procs: dict, timeout: float = 300.0) -> dict:
+    """Wait for the dry-runs; every process is killed at ``timeout``."""
+    recs = {}
+    try:
+        for name, (path, proc) in procs.items():
+            log, _ = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0,
+                  f"15: the dry-run of {name} ran: {log[-3000:]}")
+            with open(path) as f:
+                recs[name] = json.loads(f.readline())
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def _real_step(name, arch, shape_name, batch, seq, mesh) -> dict:
+    """The case's step on the card through the same bundle as the
+    dry-run's (``build_step`` on a real 1x1 mesh), after one step run
+    uncounted (the dry-run counts a step after its ``warm`` one): its
+    counts under the accounting mode, its peak memory
+    (``max_memory_allocated`` from a reset, less what the process held
+    before the arguments were made) and one more step timed."""
+    from repro_torch.configs import INPUT_SHAPES, get_arch_config
+    from repro_torch.data import make_lm_batch
+    from repro_torch.launch.dryrun import make_run
+    from repro_torch.launch.steps import build_step
+    from repro_torch.sharding.spec import values_tree
+    from repro_torch.tree import tree_as_tensors
+
+    cfg = get_arch_config(arch)
+    shape = dataclasses.replace(INPUT_SHAPES[shape_name],
+                                global_batch=batch, seq_len=seq)
+    run = make_run(cfg, shape, mesh, compute_dtype="float32")
+    bundle = build_step(cfg, run, shape, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    if shape.kind == "train":
+        data = tree_as_tensors(make_lm_batch(rng, batch, seq,
+                                             bundle.cfg.vocab_size), "cuda")
+        args = (bundle.init(gen, batch=data), data)
+    else:
+        args = (values_tree(bundle.api.init(gen)),
+                {"tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+                    ).cuda()})
+    placed = bundle.place(*args)
+    del args
+    with torch.no_grad() if shape.kind != "train" else \
+            contextlib.nullcontext():
+        bundle(*placed)            # a first step, as the dry-run's warm()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = bundle.account(*placed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        t0 = time.perf_counter()
+        out = bundle(*placed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    del out, placed, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts, peak_measured=peak, seconds=seconds,
+                compute_dtype=run.compute_dtype)
+
+
+def phase_dryrun() -> dict:
+    """Each ``DRYRUN_CASES`` case through the dry-run (a subprocess) and
+    once for real on the card under the same accounting mode: per-device
+    product FLOPs equal (or within ``DRYRUN_FLOPS_TOL``, each op's
+    difference printed), the kernel's meta launches equal the card's, the
+    dry-run's peak bytes within ``DRYRUN_PEAK_TOL`` of the card's, and the
+    step's time at least its roofline bound.  Returns the card's launches
+    by kernel."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from repro_torch.launch.hlo_analysis import roofline_from_counts
+    from repro_torch.launch.mesh import make_local_mesh
+
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start_dryruns(tmp)
+        try:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1, timeout=timedelta(seconds=300))
+            try:
+                mesh = make_local_mesh(1, 1, device="cuda")
+                real = {}
+                for case in DRYRUN_CASES:
+                    _zero_counts()
+                    real[case[0]] = _real_step(*case[:5], mesh)
+                    for w in WRAPPERS:
+                        launched[w.__name__] = (launched.get(w.__name__, 0)
+                                                + w.launches)
+            finally:
+                dist.destroy_process_group()
+        finally:
+            dry = _finish(procs)
+    for name, arch, _, batch, seq, kernel, launches in DRYRUN_CASES:
+        d, r = dry[name], real[name]
+        dflops, rflops = d["product_flops_per_device"], r["product_flops"]
+        ops = sorted(set(d["flops_by_op"]) | set(r["flops_by_op"]))
+        by_op = {op: (d["flops_by_op"].get(op, 0),
+                      r["flops_by_op"].get(op, 0)) for op in ops}
+        gap = abs(dflops - rflops) / max(rflops, 1)
+        check(gap <= DRYRUN_FLOPS_TOL,
+              f"15 {name}: product FLOPs of the dry-run {dflops} against "
+              f"the card's {rflops} (by op {by_op})")
+        dl, rl = d["launches"].get(kernel, 0), r["launches"].get(kernel, 0)
+        check(dl == rl == launches,
+              f"15 {name}: {kernel}'s meta launches {dl} and the card's "
+              f"{rl}, {launches} wanted")
+        dpeak, rpeak = d["peak_bytes_per_device"], r["peak_measured"]
+        peak_gap = abs(dpeak - rpeak) / rpeak
+        check(peak_gap <= DRYRUN_PEAK_TOL,
+              f"15 {name}: the dry-run's peak {dpeak} bytes against the "
+              f"card's max_memory_allocated {rpeak}")
+        roof = roofline_from_counts(r, 1, compute_dtype=r["compute_dtype"])
+        bound = max(roof.t_compute, roof.t_memory)
+        check(r["seconds"] >= bound,
+              f"15 {name}: the step's {r['seconds']} s under its roofline "
+              f"bound {bound} s: a counting fault")
+        say(f"15 dryrun-{name}", arch=arch, batch=batch, seq=seq,
+            dtype="float32", product_flops_dry=dflops,
+            product_flops_card=rflops, flops_gap=gap,
+            flops_by_op_dry_card=json.dumps(by_op).replace(" ", ""),
+            kernel=kernel, launches_dry=dl, launches_card=rl,
+            arg_bytes_dry=d["arg_bytes_per_device"],
+            arg_bytes_card=r["arg_bytes"], peak_bytes_dry=dpeak,
+            peak_bytes_card=rpeak, peak_gap=f"{peak_gap:.4f}",
+            bytes_dry=int(d["hbm_bytes"]), bytes_card=r["bytes"],
+            collectives_dry=json.dumps(d["collective_counts"]).replace(
+                " ", ""),
+            collectives_card=json.dumps(r["collective_counts"]).replace(
+                " ", ""),
+            t_compute_s=f"{roof.t_compute:.6f}",
+            t_memory_s=f"{roof.t_memory:.6f}",
+            step_s=f"{r['seconds']:.6f}",
+            roofline_fraction=f"{bound / r['seconds']:.4f}",
+            dry_run_s=d["compile_s"])
+    return launched
+
+
+# --- 16. the examples ---------------------------------------------------------
+
+
+def phase_examples() -> dict:
+    """The four torch examples at their smallest flags, all at once, each
+    a process of its own on the card: each exits 0 and prints its kernel
+    launches, which must be those of its path.  Returns the launches by
+    kernel."""
+    from repro_torch.configs import get_smoke_config
+
+    serve_gen = 2
+    finch = get_smoke_config("rwkv6-1.6b")
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = {
+            "quickstart": (["torch_quickstart.py", "--batches", "2", "--out",
+                            os.path.join(tmp, "model.json")],
+                           "adagrad", 2),
+            "serve": (["torch_serve_llm.py", "--batch", "1", "--prompt-len",
+                       "8", "--gen", str(serve_gen)],
+                      "rwkv6", (1 + serve_gen) * finch.num_layers),
+            "train": (["torch_train_llm.py", "--steps", "10", "--batch", "2",
+                       "--seq", "16", "--d-model", "64", "--layers", "1",
+                       "--vocab", "256"], "adagrad", 20),
+            "sim": (["torch_sashimi_browser_sim.py", "--train"],
+                    "server_step", 6),
+        }
+        procs = {name: subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", argv[0]),
+             *argv[1:]], cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for name, (argv, _, _) in cases.items()}
+        logs, t0 = {}, time.perf_counter()
+        try:
+            for name, proc in procs.items():
+                logs[name], _ = proc.communicate(timeout=300)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds = time.perf_counter() - t0
+    launched = {}
+    for name, (argv, kernel, want) in cases.items():
+        log = logs[name]
+        check(procs[name].returncode == 0,
+              f"16: examples/{argv[0]} exits 0: {log[-3000:]}")
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith("kernel launches:")]
+        check(len(lines) == 1, f"16: examples/{argv[0]} prints its kernel "
+              f"launches: {log[-2000:]}")
+        counts = dict(re.findall(r"(\w+)=(\d+)", lines[0]))
+        got = int(counts.get(kernel, -1))
+        check(got == want, f"16: examples/{argv[0]} launched {kernel} "
+              f"{got} times, {want} wanted: {lines[0]}")
+        launched[kernel] = launched.get(kernel, 0) + got
+        say(f"16 example-{name}", script=f"examples/{argv[0]}",
+            flags=repr(" ".join(argv[1:])), exit=0,
+            launches=repr(lines[0][len("kernel launches: "):]))
+    say("16 examples", seconds=f"{seconds:.3f}")
+    return launched
+
+
 def _ptxas(name: str) -> list:
     """(CUDA function, registers a thread, spill bytes) of each entry
     function of kernel ``name``, from ptxas's ``-v`` lines in its build
@@ -2967,6 +3217,12 @@ def main() -> int:
     kernels["adagrad"]["launches"] += sharded["adagrad"]
     kernels["server_step"]["launches"] += sharded["server_step"]
     kernels["flash_attention"]["launches"] += sharded["flash_attention"]
+    dryrun = phase_dryrun()
+    kernels["adagrad"]["launches"] += (dryrun["adagrad_update_leaves"]
+                                       + dryrun["adagrad_update"])
+    kernels["flash_attention"]["launches"] += dryrun["flash_attention"]
+    for name, n in phase_examples().items():
+        kernels[name]["launches"] += n
     print(_smi(), flush=True)          # again beside the numbers it qualifies
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -4,9 +4,13 @@
 dispatches by their device: CUDA tensors launch ``kernel.cu`` on the
 current stream (or raise), one launch for each (p dtype, g dtype) pair
 present and each :data:`MAX_LEAVES` leaves of it; CPU tensors run the plain
-version in ``ref.py`` leaf by leaf.  :func:`adagrad_update` is the same for
-a list of one.  Each wrapper adds one to its own ``launches`` for every
-launch it makes, and nothing else does.
+version in ``ref.py`` leaf by leaf; meta tensors get empty outputs and
+count the launches the card would make (the dry-run's route).
+:func:`adagrad_update` is the same for a list of one.  Each wrapper adds
+one to its own ``launches`` for every launch it makes, and nothing else
+does; the meta route adds to ``meta_launches`` instead.  :func:`work` is
+the kernel's useful work, reported on every route to an open accounting
+mode.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.adagrad.ref import adagrad_ref
-from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
+from repro_torch.kernels.build import (accounted, launch, meta_launch,
+                                       refuse_dtensor, route)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: leaves a launch takes (kernel.cu's kMaxLeaves)
@@ -50,34 +55,56 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _update(counter, ps, gs, accs, lr, beta, weight_decay):
-    """The checked leaves' update; each launch adds one to
-    ``counter.launches``."""
-    if not ps:
-        return [], []
-    if not runs_kernel(ps[0].device, "adagrad"):
-        outs = [adagrad_ref(p, g, a, lr=lr, beta=beta,
-                            weight_decay=weight_decay)
-                for p, g, a in zip(ps, gs, accs)]
-        return [o[0] for o in outs], [o[1] for o in outs]
-    p_out = [torch.empty_like(p) for p in ps]
-    acc_out = [torch.empty_like(a) for a in accs]
+def work(ps, gs) -> tuple:
+    """(flops, bytes) of one call over leaves ``ps`` with gradients
+    ``gs``.  Bytes: p, g and acc read and p' and acc' written once.
+    Operations: 7 an element (g*g, the add into acc, beta + acc', its
+    rsqrt, lr*g, the product and the subtraction)."""
+    nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 8)
+                 for p, g in zip(ps, gs))
+    return 7 * sum(p.numel() for p in ps), nbytes
+
+
+def _launch_groups(ps, gs) -> list:
+    """The leaves of each launch: those of one (p dtype, g dtype) pair,
+    empty leaves left out, :data:`MAX_LEAVES` at a time."""
     pairs: dict = {}
     for i, (p, g) in enumerate(zip(ps, gs)):
         if p.numel():
             pairs.setdefault((p.dtype, g.dtype), []).append(i)
-    for (p_dtype, g_dtype), leaves in pairs.items():
-        for lo in range(0, len(leaves), MAX_LEAVES):
-            part = leaves[lo:lo + MAX_LEAVES]
+    return [leaves[lo:lo + MAX_LEAVES] for leaves in pairs.values()
+            for lo in range(0, len(leaves), MAX_LEAVES)]
+
+
+def _update(counter, ps, gs, accs, lr, beta, weight_decay):
+    """The checked leaves' update; each launch adds one to
+    ``counter.launches`` (on the meta route, to ``counter.meta_launches``).
+    """
+    if not ps:
+        return [], []
+    where = route(ps[0].device, "adagrad")
+    with accounted("adagrad", work(ps, gs)):
+        if where == "cpu":
+            outs = [adagrad_ref(p, g, a, lr=lr, beta=beta,
+                                weight_decay=weight_decay)
+                    for p, g, a in zip(ps, gs, accs)]
+            return [o[0] for o in outs], [o[1] for o in outs]
+        p_out = [torch.empty_like(p) for p in ps]
+        acc_out = [torch.empty_like(a) for a in accs]
+        for part in _launch_groups(ps, gs):
+            if where == "meta":
+                meta_launch(counter)
+                continue
             launch(counter, "adagrad", "repro_adagrad_update_leaves",
                    _ARGTYPES, ps[0].device,
                    *(_pointers([ts[i] for i in part])
                      for ts in (ps, gs, accs, p_out, acc_out)),
                    (ctypes.c_longlong * len(part))(
                        *(ps[i].numel() for i in part)),
-                   len(part), int(p_dtype == torch.bfloat16),
-                   int(g_dtype == torch.bfloat16), float(lr), float(beta),
-                   int(bool(weight_decay)), float(weight_decay))
+                   len(part), int(ps[part[0]].dtype == torch.bfloat16),
+                   int(gs[part[0]].dtype == torch.bfloat16), float(lr),
+                   float(beta), int(bool(weight_decay)),
+                   float(weight_decay))
     return p_out, acc_out
 
 
@@ -114,5 +141,7 @@ def adagrad_update(p, g, acc, *, lr: float, beta: float = 1.0,
 
 adagrad_update.launches = 0
 adagrad_update_leaves.launches = 0
+adagrad_update.meta_launches = 0
+adagrad_update_leaves.meta_launches = 0
 
-__all__ = ["MAX_LEAVES", "adagrad_update", "adagrad_update_leaves"]
+__all__ = ["MAX_LEAVES", "adagrad_update", "adagrad_update_leaves", "work"]

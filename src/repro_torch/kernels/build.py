@@ -10,6 +10,7 @@ imported; the first launch, or :func:`build`, does it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -138,15 +139,43 @@ def refuse_dtensor(name: str, t) -> None:
                 f"pass its local shard")
 
 
-def runs_kernel(device: torch.device, kernel: str) -> bool:
-    """The dispatch rule of every wrapper: True for a CUDA device (launch
-    the kernel), False for the CPU (run the plain version); any other
-    device raises."""
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"no {kernel} kernel for device {device}")
-    return True
+def route(device: torch.device, kernel: str) -> str:
+    """The dispatch rule of every wrapper: ``"cuda"`` for a CUDA device
+    (launch the kernel), ``"cpu"`` for the CPU (run the plain version),
+    ``"meta"`` for the meta device (outputs of the right shape and dtype,
+    nothing computed: the dry-run's route, see :func:`meta_launch`); any
+    other device raises."""
+    if device.type in ("cuda", "cpu", "meta"):
+        return device.type
+    raise ValueError(f"no {kernel} kernel for device {device}")
+
+
+#: The accounting modes open in this thread, innermost last
+#: (``repro_torch.launch.hlo_analysis.Accounting`` pushes itself here).
+#: Each wrapper reports its kernel's work to them (:func:`accounted`).
+ACCOUNTS: list = []
+
+
+@contextlib.contextmanager
+def accounted(name: str, work: tuple):
+    """Around one wrapper call on any route: report kernel ``name``'s
+    useful ``work`` (flops, bytes) to every open accounting mode, which
+    counts the call as one opaque kernel and does not count again the
+    torch ops run inside it (the plain version's, the outputs'
+    allocation)."""
+    for acct in ACCOUNTS:
+        acct.kernel(name, *work)
+    try:
+        yield
+    finally:
+        for acct in ACCOUNTS:
+            acct.kernel_done()
+
+
+def meta_launch(wrapper) -> None:
+    """A launch on the meta route: adds one to ``wrapper.meta_launches``
+    (never to ``wrapper.launches``, which counts the card's launches)."""
+    wrapper.meta_launches += 1
 
 
 def launch(wrapper, name: str, entry: str, argtypes: list,
@@ -167,5 +196,6 @@ def launch(wrapper, name: str, entry: str, argtypes: list,
     wrapper.launches += 1
 
 
-__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "launch",
-           "library", "log_path", "refuse_dtensor", "runs_kernel"]
+__all__ = ["ACCOUNTS", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "accounted",
+           "build", "launch", "library", "log_path", "meta_launch",
+           "refuse_dtensor", "route"]

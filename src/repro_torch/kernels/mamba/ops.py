@@ -2,8 +2,11 @@
 
 :func:`mamba_scan` checks its tensors, then dispatches by their device:
 CUDA tensors launch ``kernel.cu`` on the current stream (or raise), CPU
-tensors run the plain version in ``ref.py``.  Only a launch adds one to
-``mamba_scan.launches``.  The kernel has no backward (nor has the JAX
+tensors run the plain version in ``ref.py``, meta tensors get empty
+outputs (the dry-run's route).  Only a launch adds one to
+``mamba_scan.launches``, and only the meta route to
+``mamba_scan.meta_launches``; :func:`work` is the kernel's useful work,
+reported on every route to an open accounting mode.  The kernel has no backward (nor has the JAX
 package's), so an input that requires grad is refused.
 """
 from __future__ import annotations
@@ -12,7 +15,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
+from repro_torch.kernels.build import (accounted, launch, meta_launch,
+                                       refuse_dtensor, route)
 from repro_torch.kernels.mamba.ref import mamba_scan_ref
 
 D_STATES = (8, 16, 32)
@@ -60,6 +64,19 @@ def _check(dt, x, b_t, c_t, a, h0) -> None:
                          f"dt {tuple(dt.shape)}, ds {ds}")
 
 
+def work(dt, x, b_t, c_t, a, h0) -> tuple:
+    """(flops, bytes) of one call.  Bytes: dt, x, b_t, c_t, a and h0 read
+    and y and hT (f32) written once.  Operations: 6 per state element a
+    step (dt*a, da*h, dx*b, their sum, h*c and its add into y) and 1 per
+    channel a step (dx = dt*x); the exps are not counted (kernel.cu notes
+    their own limit)."""
+    b, t, di = dt.shape
+    nbytes = (sum(z.numel() * z.element_size()
+                  for z in (dt, x, b_t, c_t, a, h0))
+              + 4 * dt.numel() + 4 * h0.numel())
+    return b * t * di * (6 * b_t.shape[2] + 1), nbytes
+
+
 def mamba_scan(dt, x, b_t, c_t, a, h0):
     """The selective scan ``h_t = exp(dt_t a) h + (dt_t x_t) b_t``,
     ``y_t = h_t c_t``: dt (B, T, DI) f32; x (B, T, DI) and b_t, c_t
@@ -67,18 +84,25 @@ def mamba_scan(dt, x, b_t, c_t, a, h0):
     h0 (B, DI, ds) f32; ds in {8, 16, 32}; all contiguous on one device.
     Returns (y (B, T, DI) f32, hT (B, DI, ds) f32)."""
     _check(dt, x, b_t, c_t, a, h0)
-    if not runs_kernel(dt.device, "mamba_scan"):
-        return mamba_scan_ref(dt, x, b_t, c_t, a, h0)
-    b, t, di = dt.shape
-    y = torch.empty_like(dt)
-    hT = torch.empty_like(h0)
-    launch(mamba_scan, "mamba", "repro_mamba_scan", _ARGTYPES, dt.device,
-           dt.data_ptr(), x.data_ptr(), b_t.data_ptr(), c_t.data_ptr(),
-           a.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), b, t,
-           di, b_t.shape[2], int(x.dtype == torch.bfloat16))
+    where = route(dt.device, "mamba_scan")
+    with accounted("mamba", work(dt, x, b_t, c_t, a, h0)):
+        if where == "cpu":
+            return mamba_scan_ref(dt, x, b_t, c_t, a, h0)
+        b, t, di = dt.shape
+        y = torch.empty_like(dt)
+        hT = torch.empty_like(h0)
+        if where == "meta":
+            meta_launch(mamba_scan)
+            return y, hT
+        launch(mamba_scan, "mamba", "repro_mamba_scan", _ARGTYPES,
+               dt.device, dt.data_ptr(), x.data_ptr(), b_t.data_ptr(),
+               c_t.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+               hT.data_ptr(), b, t, di, b_t.shape[2],
+               int(x.dtype == torch.bfloat16))
     return y, hT
 
 
 mamba_scan.launches = 0
+mamba_scan.meta_launches = 0
 
-__all__ = ["D_STATES", "mamba_scan"]
+__all__ = ["D_STATES", "mamba_scan", "work"]

@@ -2,8 +2,10 @@
 
 :func:`wkv` checks its tensors, then dispatches by their device: CUDA
 tensors launch ``kernel.cu`` on the current stream (or raise), CPU tensors
-run the plain version in ``ref.py``.  Only a launch adds one to
-``wkv.launches``.  The kernel has no backward (nor has the JAX package's),
+run the plain version in ``ref.py``, meta tensors get empty outputs (the
+dry-run's route).  Only a launch adds one to ``wkv.launches``, and only
+the meta route to ``wkv.meta_launches``; :func:`work` is the kernel's
+useful work, reported on every route to an open accounting mode.  The kernel has no backward (nor has the JAX package's),
 so an input that requires grad is refused.
 """
 from __future__ import annotations
@@ -12,7 +14,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
+from repro_torch.kernels.build import (accounted, launch, meta_launch,
+                                       refuse_dtensor, route)
 from repro_torch.kernels.rwkv6.ref import wkv_ref
 
 HEAD_DIMS = (32, 64)
@@ -56,24 +59,43 @@ def _check(r, k, v, w, u, s0) -> None:
                          f"got r {tuple(r.shape)}")
 
 
+def work(r, k, v, w, u, s0) -> tuple:
+    """(flops, bytes) of one call.  Bytes: r, k, v, w, u and s0 read and y
+    and sT written once.  Operations: the function's least, not the 7 of
+    the order the kernel rounds in.  y_j = sum_i r_i S_ij + v_j sum_i r_i
+    u_i k_i is 2 per state element a step (a multiply and an add) plus 5
+    per column (3 for the row sum, 2 to fold it in); S'_ij = w_i S_ij +
+    k_i v_j is 3 per element."""
+    b, t, h, hd = r.shape
+    nbytes = (4 * r.numel() * r.element_size() + 4 * w.numel()
+              + 4 * u.numel() + 8 * s0.numel())
+    return b * t * h * (5 * hd * hd + 5 * hd), nbytes
+
+
 def wkv(r, k, v, w, u, s0):
     """The WKV-6 recurrence: r/k/v (B, T, H, hd) f32 or bf16, w (B, T, H,
     hd) f32 decay, u (H, hd) f32 bonus, s0 (B, H, hd, hd) f32 state; hd in
     {32, 64}; all contiguous on one device.  Returns (y (B, T, H, hd) in
     r's dtype, sT (B, H, hd, hd) f32)."""
     _check(r, k, v, w, u, s0)
-    if not runs_kernel(r.device, "wkv"):
-        return wkv_ref(r, k, v, w, u, s0)
-    b, t, h, hd = r.shape
-    y = torch.empty_like(r)
-    sT = torch.empty_like(s0)
-    launch(wkv, "rwkv6", "repro_wkv", _ARGTYPES, r.device, r.data_ptr(),
-           k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-           s0.data_ptr(), y.data_ptr(), sT.data_ptr(), b, t, h, hd,
-           int(r.dtype == torch.bfloat16))
+    where = route(r.device, "wkv")
+    with accounted("rwkv6", work(r, k, v, w, u, s0)):
+        if where == "cpu":
+            return wkv_ref(r, k, v, w, u, s0)
+        b, t, h, hd = r.shape
+        y = torch.empty_like(r)
+        sT = torch.empty_like(s0)
+        if where == "meta":
+            meta_launch(wkv)
+            return y, sT
+        launch(wkv, "rwkv6", "repro_wkv", _ARGTYPES, r.device,
+               r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+               u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(), b,
+               t, h, hd, int(r.dtype == torch.bfloat16))
     return y, sT
 
 
 wkv.launches = 0
+wkv.meta_launches = 0
 
-__all__ = ["HEAD_DIMS", "wkv"]
+__all__ = ["HEAD_DIMS", "wkv", "work"]

@@ -2,8 +2,11 @@
 
 :func:`server_step_update` checks its tensors, then dispatches by their
 device: CUDA tensors launch ``kernel.cu`` on the current stream (or raise),
-CPU tensors run the plain version in ``ref.py``.  Only a launch adds one to
-``server_step_update.launches``.
+CPU tensors run the plain version in ``ref.py``, meta tensors get empty
+outputs (the dry-run's route).  Only a launch adds one to
+``server_step_update.launches``, and only the meta route to
+``server_step_update.meta_launches``; :func:`work` is the kernel's useful
+work, reported on every route to an open accounting mode.
 
 The gradient stack may be pitched: its rows are contiguous and lie ``ld``
 elements apart, ``ld >= n`` (``buf[:, :n]`` of an ``(M, ld)`` buffer, as
@@ -16,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import launch, refuse_dtensor, runs_kernel
+from repro_torch.kernels.build import (accounted, launch, meta_launch,
+                                       refuse_dtensor, route)
 from repro_torch.kernels.server_step.ref import server_step_ref
 
 #: Members a call takes (kernel.cu instantiates 1..8 and loops beyond).
@@ -63,6 +67,14 @@ def _check(p, g_stack, acc, coeffs) -> int:
     return ld
 
 
+def work(p, g_stack, acc, coeffs) -> tuple:
+    """(flops, bytes) of one call.  Bytes: p, acc and M gradient rows read
+    and p' and acc' written once, and the M coefficients.  Operations:
+    about 2M + 7 an element (kernel.cu's header)."""
+    n, m = p.numel(), g_stack.shape[0]
+    return (2 * m + 7) * n, (m + 4) * 4 * n + 4 * m
+
+
 def server_step_update(p, g_stack, acc, coeffs, *, lr: float,
                        beta: float = 1.0, weight_decay: float = 0.0):
     """Fused clip×weight mean + modified-AdaGrad update.
@@ -74,11 +86,17 @@ def server_step_update(p, g_stack, acc, coeffs, *, lr: float,
     back); all on one device.  Returns ``(p', acc')`` f32 in ``p``'s
     shape."""
     ld = _check(p, g_stack, acc, coeffs)
-    if not runs_kernel(p.device, "server-step"):
-        return server_step_ref(p, g_stack, acc, coeffs, lr=lr, beta=beta,
-                               weight_decay=weight_decay)
-    p_out, acc_out = torch.empty_like(p), torch.empty_like(acc)
-    if p.numel():
+    where = route(p.device, "server-step")
+    with accounted("server_step", work(p, g_stack, acc, coeffs)):
+        if where == "cpu":
+            return server_step_ref(p, g_stack, acc, coeffs, lr=lr,
+                                   beta=beta, weight_decay=weight_decay)
+        p_out, acc_out = torch.empty_like(p), torch.empty_like(acc)
+        if not p.numel():
+            return p_out, acc_out
+        if where == "meta":
+            meta_launch(server_step_update)
+            return p_out, acc_out
         launch(server_step_update, "server_step",
                "repro_server_step_pitched", _ARGTYPES, p.device,
                p.data_ptr(), g_stack.data_ptr(), acc.data_ptr(),
@@ -89,5 +107,6 @@ def server_step_update(p, g_stack, acc, coeffs, *, lr: float,
 
 
 server_step_update.launches = 0
+server_step_update.meta_launches = 0
 
-__all__ = ["MAX_MEMBERS", "server_step_update"]
+__all__ = ["MAX_MEMBERS", "server_step_update", "work"]

@@ -12,12 +12,21 @@ the eager step on the DTensors under a :class:`ShardCtx`, where
 itself (positions, masks, zeros) count as replicated
 (``implicit_replication``).  Sharding never changes what a step computes:
 a sharded step gives its unsharded step's numbers, up to the order of
-floating-point sums.  The JAX bundles' ``.lower()`` (the XLA dry-run)
-comes with the dry-run tooling (ROADMAP.md, Queue 1 item 8).
+floating-point sums.
+
+:meth:`StepBundle.account` is the counterpart of the JAX bundles'
+``.lower()`` and XLA's analyses: it runs the step once under
+``launch.hlo_analysis.Accounting`` and returns one rank's FLOPs, bytes,
+collectives, kernel launches and memory.  Given no arguments it runs on
+the bundle's ``args_spec``, placed as DTensors of meta tensors (rank 0's
+local shapes, nothing allocated), on any mesh, a shape-only one
+(``launch.mesh.make_shape_mesh``) included; given real arguments it counts
+a real step.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -213,11 +222,41 @@ def placement_tree(axes, spec, rules: dict, mesh):
     return _from_tree(axes, map_axes(one, _as_tree(axes), _as_tree(spec)))
 
 
+def _is_spec(x) -> bool:
+    """A leaf that holds a shape and a dtype only: a ``(shape, dtype)``
+    batch-spec entry or a meta tensor."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[1], torch.dtype)) or (
+                isinstance(x, torch.Tensor) and x.is_meta
+                and not is_dtensor(x))
+
+
+def _meta_leaf(x, mesh, pl):
+    """A shape-only leaf as a meta tensor, or with placements ``pl`` a
+    DTensor of meta tensors whose local shard has this rank's shape (an
+    uneven split's included); nothing is allocated."""
+    shape, dtype = ((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                    else (tuple(x[0]), x[1]))
+    if pl is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh, pl,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def _place_leaf(x, mesh, pl):
     """One leaf on ``mesh`` with placements ``pl``: a plain tensor is
     distributed from this rank's copy (every rank holds the same whole
     tensor, made from the same seed), a DTensor redistributed when its
-    placements differ."""
+    placements differ, and a shape-only leaf (:func:`_is_spec`) made a
+    meta DTensor (:func:`_meta_leaf`)."""
+    if _is_spec(x):
+        return _meta_leaf(x, mesh, pl)
     if pl is None:
         return x
     if is_dtensor(x):
@@ -259,7 +298,8 @@ class StepBundle:
     example arguments (on the meta device: shapes and dtypes alone) and
     ``in_placements`` the placement tree of each.  Calling the bundle
     places its arguments (:meth:`place`) and runs ``fn`` under the run's
-    :class:`ShardCtx`.  ``init`` (train) makes the initial state:
+    :class:`ShardCtx`; :meth:`account` runs it once under the accounting
+    mode.  ``init`` (train) makes the initial state:
     ``init(generator=None, *, params=None, batch=None)``."""
 
     fn: Callable
@@ -276,13 +316,83 @@ class StepBundle:
         return tuple(place(a, pl, self.mesh)
                      for a, pl in zip(args, self.in_placements))
 
-    def __call__(self, *args, **kw):
+    def _run(self, args, kw):
         from torch.distributed.tensor.experimental import \
             implicit_replication
-        args = self.place(*args)
         with use_shard_ctx(ShardCtx(self.mesh, self.rules)), \
                 implicit_replication():
             return self.fn(*args, **kw)
+
+    def __call__(self, *args, **kw):
+        return self._run(self.place(*args), kw)
+
+    def account(self, *args, **kw) -> dict:
+        """Run the step once under ``launch.hlo_analysis.Accounting`` and
+        return this rank's counts (``Accounting.counts``) with
+        ``arg_bytes`` (the local shards of the placed arguments),
+        ``out_bytes`` (the outputs' storage the step made), ``peak_bytes``
+        (``arg_bytes`` plus the high-water mark of storage the step made)
+        and ``launches`` ({kernel: launches, real or meta, in this run}).
+        With no ``args`` the step runs on ``args_spec`` as meta DTensors,
+        and nothing is computed or allocated.  The cyclic garbage
+        collector is off during the step, so that what it frees does not
+        depend on when it runs: storage that only a reference cycle holds
+        counts as live to the end of the step."""
+        from repro_torch.launch.hlo_analysis import Accounting
+        placed = self.place(*(args or self.args_spec))
+        acct = Accounting()
+        arg_bytes = acct.pin(_locals(placed))
+        before = kernel_launches()
+        collecting = gc.isenabled()
+        gc.disable()      # storage in a reference cycle lives to the end
+        try:
+            with acct:
+                out = self._run(placed, kw)
+        finally:
+            if collecting:
+                gc.enable()
+        counts = acct.counts()
+        after = kernel_launches()
+        fresh = {}
+        for t in _locals(out):
+            key = t.untyped_storage()._cdata
+            if key not in acct._pinned:
+                fresh[key] = t.untyped_storage().nbytes()
+        counts.update(arg_bytes=arg_bytes, out_bytes=sum(fresh.values()),
+                      peak_bytes=arg_bytes + counts["temp_bytes"],
+                      launches={k: after[k] - before[k] for k in after})
+        return counts
+
+
+def _locals(x) -> list:
+    """The tensors of a tree (dicts, lists, tuples, TrainStates), each
+    DTensor as its local shard."""
+    if isinstance(x, TrainState):
+        x = vars(x)
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _locals(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _locals(v)]
+    if isinstance(x, torch.Tensor):
+        return [x.to_local() if is_dtensor(x) else x]
+    return []
+
+
+def kernel_launches() -> dict:
+    """{kernel: launches on the card plus launches on the meta route} of
+    every wrapper, summed over a kernel's wrappers."""
+    from repro_torch.kernels.adagrad.ops import (adagrad_update,
+                                                 adagrad_update_leaves)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba.ops import mamba_scan
+    from repro_torch.kernels.rwkv6.ops import wkv
+    from repro_torch.kernels.server_step.ops import server_step_update
+    wrappers = {"server_step": (server_step_update,),
+                "adagrad": (adagrad_update, adagrad_update_leaves),
+                "flash_attention": (flash_attention,), "rwkv6": (wkv,),
+                "mamba": (mamba_scan,)}
+    return {k: sum(w.launches + w.meta_launches for w in ws)
+            for k, ws in wrappers.items()}
 
 
 def _meta(shape_dtype) -> torch.Tensor:
@@ -419,6 +529,7 @@ def build_step(cfg: ArchConfig, run: RunConfig, shape: InputShape, mesh,
 
 __all__ = ["LONG_CONTEXT_WINDOW", "StepBundle", "arch_for_run", "batch_axes",
            "build_decode_step", "build_prefill_step", "build_step",
-           "build_train_step", "cache_axes", "make_rules", "opt_state_axes",
+           "build_train_step", "cache_axes", "kernel_launches", "make_rules",
+           "opt_state_axes",
            "place", "placement_tree", "resolve_decode_layout",
            "train_parts", "train_state_axes"]

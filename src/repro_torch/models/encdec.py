@@ -178,11 +178,7 @@ def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
         cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    if size < s:  # keep the trailing window, ring-ordered by position
-        keep = positions[s - size:]
-        slots = (keep % size).long()
-    else:
-        keep, slots = positions, torch.arange(s, device=x.device)
+    keep, slots = L.prefill_slots(positions, size)
     for i in range(cfg.num_layers):
         x, (k, v), (ck, cv) = _dec_block(layer(params["dec_blocks"], i),
                                          cfg, x, enc_out,

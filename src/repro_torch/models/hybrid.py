@@ -202,11 +202,7 @@ def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
         cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    if size < s:  # keep the trailing window, ring-ordered by position
-        keep = positions[s - size:]
-        slots = (keep % size).long()
-    else:
-        keep, slots = positions, torch.arange(s, device=x.device)
+    keep, slots = L.prefill_slots(positions, size)
     for p in range(_counts(cfg)[0]):
         x, _, (k, v), (ssm, conv) = _apply_period(
             layer(params["periods"], p), cfg, x, positions=positions,

@@ -29,7 +29,8 @@ from repro_torch.sharding.collectives import (local_in, local_out,
                                               shard_offset, sharding_axes,
                                               sum_over)
 from repro_torch.sharding.spec import (Param, init_device, is_dtensor,
-                                       on_local_shards, param, shard_act)
+                                       grad_as_placed, on_local_shards,
+                                       param, shard_act, shard_heads)
 
 
 def checkpointed(fn, *args, enabled: bool = True):
@@ -177,8 +178,21 @@ def init_attention(generator, cfg, *, cross: bool = False):
     return p
 
 
+def _project_heads(x, w, axis: str):
+    """x (B, S, D) through w (D, N, hd) -> (B, S, N, hd): one product over
+    the flattened heads, placed by ``axis`` for N heads
+    (``shard_heads``) before it is split into them, so that a head count
+    the mesh axis does not divide (2 kv heads on a 4-wide model axis)
+    stays whole; the flattened weight's gradient comes back in its own
+    placements (``grad_as_placed``) for the same reason."""
+    d, n, hd = w.shape
+    wf = grad_as_placed(w.to(x.dtype).reshape(d, n * hd))
+    y = shard_heads(x @ wf, axis, n)
+    return y.unflatten(-1, (n, hd))
+
+
 def _proj_q(p, x):
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
+    q = _project_heads(x, p["wq"], "heads")
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
     if "q_norm" in p:
@@ -187,8 +201,8 @@ def _proj_q(p, x):
 
 
 def _proj_qkv(p, cfg, x, kv_input):
-    k = torch.einsum("bsd,dnh->bsnh", kv_input, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dnh->bsnh", kv_input, p["wv"].to(x.dtype))
+    k = _project_heads(kv_input, p["wk"], "kv_heads")
+    v = _project_heads(kv_input, p["wv"], "kv_heads")
     if "bk" in p:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
@@ -422,22 +436,35 @@ def flash_attention_sharded(q, k, v, *, causal: bool, window: int):
     return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
+def prefill_slots(positions, size: int) -> tuple:
+    """A prefill's cache writes: ``(keep, slots)``, the positions kept
+    (all, or the trailing window of ``size`` when the prompt is longer)
+    and the cache rows they go to, ring-ordered by position.  The rows
+    are host values (a ``range``, or a list for the ring), as
+    :func:`write_rows` takes them: they follow from the shapes alone."""
+    s = positions.shape[0]
+    if size < s:
+        return positions[s - size:], [p % size for p in range(s - size, s)]
+    return positions, range(s)
+
+
 def write_rows(dst, dim: int, rows, src) -> None:
-    """``dst`` along ``dim`` at the indices ``rows`` (a 1-D int tensor, or
-    an int for one row) takes ``src`` (``dst``'s shape with ``len(rows)``
-    along ``dim``), in place.  For a DTensor ``dst`` each rank writes the
-    rows that fall in its own shard of ``dim`` into its local tensor
-    (DTensor has no in-place rule for an indexed write into a sharded
-    dimension); ``src`` is first placed as ``dst`` is, whole along
-    ``dim``.  A plain ``dst`` and an int row take a slice: no index tensor
-    to upload."""
+    """``dst`` along ``dim`` at the rows ``rows`` (an int, a ``range`` of
+    step 1, or a sequence of ints: host values) takes ``src`` (``dst``'s
+    shape with ``len(rows)`` along ``dim``), in place.  For a DTensor
+    ``dst`` each rank writes the rows that fall in its own shard of
+    ``dim`` into its local tensor (DTensor has no in-place rule for an
+    indexed write into a sharded dimension); ``src`` is first placed as
+    ``dst`` is, whole along ``dim``.  A plain ``dst`` takes a slice for an
+    int or a range: no index tensor to upload."""
+    if isinstance(rows, int):
+        rows = range(rows, rows + 1)
     if not is_dtensor(dst):
-        at = (slice(rows, rows + 1) if isinstance(rows, int)
-              else rows.to(dst.device).long())
+        at = (slice(rows.start, rows.stop) if isinstance(rows, range)
+              and rows.step == 1 else torch.tensor(list(rows),
+                                                   device=dst.device))
         dst[(slice(None),) * dim + (at,)] = src.to(dst.dtype)
         return
-    if isinstance(rows, int):
-        rows = torch.tensor([rows])
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     mesh = dst.device_mesh
     pl = tuple(Replicate() if q == Shard(dim) else q for q in dst.placements)
@@ -448,12 +475,12 @@ def write_rows(dst, dim: int, rows, src) -> None:
     local = dst.to_local()
     lo = shard_offset(dst, dim)
     hi = lo + local.shape[dim]
-    rows = rows.to(local.device).long()
-    mine = (rows >= lo) & (rows < hi)
-    if bool(mine.any()):
-        sel = mine.nonzero()[:, 0]
-        local.index_copy_(dim, rows[sel] - lo,
-                          src.index_select(dim, sel).to(local.dtype))
+    sel = [i for i, r in enumerate(rows) if lo <= r < hi]
+    if sel:
+        index = torch.tensor(sel, device=local.device)
+        local.index_copy_(dim, torch.tensor([rows[i] - lo for i in sel],
+                                            device=local.device),
+                          src.index_select(dim, index).to(local.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -110,19 +110,26 @@ def mamba_forward(p, cfg, x, *, state=None, differentiable=False):
     h0 = (state[0] if state is not None
           else torch.zeros((b, d_inner, d_state), dtype=torch.float32,
                            device=x.device))
+    # under a mesh, each rank's batch and mamba (inner) shard alone: K4
+    # takes plain tensors, and the torch-op scan's steps run as local ops
+    # rather than DTensor ops
+    seq, bd = {"batch": 0, "inner": 2}, {"batch": 0}
+    hh = {"batch": 0, "inner": 1}
     if differentiable:
-        y, hT = chunked_scan(_scan_chunk, p["A_log"], (dt, b_t, c_t, xh),
-                             h0, SCAN_CHUNK)
+        y, hT = on_local_shards(
+            lambda a_log, *z: chunked_scan(_scan_chunk, a_log, z[:4], z[4],
+                                           SCAN_CHUNK),
+            dt, {0: "batch", 2: "inner"},
+            [(p["A_log"], {"inner": 0}), (dt, seq), (b_t, bd), (c_t, bd),
+             (xh, seq), (h0, hh)], (seq, hh))
     else:
-        a = -torch.exp(p["A_log"])                        # (d_inner, ds)
-        # K4 takes plain tensors: under a mesh, each rank's batch and
-        # mamba (inner) shard
-        seq, bd = {"batch": 0, "inner": 2}, {"batch": 0}
+        # (d_inner, ds), rounded in A_log's dtype as the JAX package's
+        # ``-exp(a_log)`` is, then f32 as K4 takes it
+        a = (-torch.exp(p["A_log"])).float()
         y, hT = on_local_shards(
             mamba_scan, dt, {0: "batch", 2: "inner"},
             [(dt, seq), (xh.float(), seq), (b_t, bd), (c_t, bd),
-             (a, {"inner": 0}), (h0, {"batch": 0, "inner": 1})],
-            (seq, {"batch": 0, "inner": 1}))
+             (a, {"inner": 0}), (h0, hh)], (seq, hh))
 
     y = (y + xh.float() * p["D"]).to(x.dtype)
     y = shard_act(y * F.silu(z), "batch", "seq", "mamba")

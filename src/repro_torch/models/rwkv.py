@@ -138,9 +138,12 @@ def time_mix_forward(p, cfg, x, *, state=None, differentiable=False):
     k = xk @ p["w_k"].to(x.dtype)
     v = xv @ p["w_v"].to(x.dtype)
     g = F.silu(xg @ p["w_g"].to(x.dtype))
-    # data-dependent decay (Finch): w_t = exp(-exp(w0 + lora(x_w)))
-    lora = torch.tanh(xw.float()) @ p["w_lora_a"]
-    w = torch.exp(-torch.exp(p["w0"] + lora @ p["w_lora_b"]))  # (B,S,D) f32
+    # data-dependent decay (Finch): w_t = exp(-exp(w0 + lora(x_w))), in
+    # f32 whatever the parameters' dtype (jnp promotes the bf16 LoRA
+    # weights and w0 against the f32 tanh; torch's product does not)
+    lora = torch.tanh(xw.float()) @ p["w_lora_a"].float()
+    w = torch.exp(-torch.exp(p["w0"].float()
+                             + lora @ p["w_lora_b"].float()))  # (B,S,D) f32
 
     def heads_(z):
         return shard_act(z.reshape(b, s, h, hd).contiguous(), "batch",
@@ -149,19 +152,22 @@ def time_mix_forward(p, cfg, x, *, state=None, differentiable=False):
     s0 = (state[0] if state is not None
           else torch.zeros((b, h, hd, hd), dtype=torch.float32,
                            device=x.device))
+    # under a mesh, each rank's batch and rwkv_head shard alone: K5 takes
+    # plain tensors, and the torch-op scan's steps run as local ops
+    # rather than DTensor ops
+    bh, hh = {"batch": 0, "head": 2}, {"batch": 0, "head": 1}
+    rh = heads_(r)
+    seqs = [(rh, bh), (heads_(k), bh), (heads_(v), bh), (heads_(w), bh)]
     if differentiable:
-        y, sT = L.chunked_scan(_wkv_chunk, p["u"],
-                               tuple(heads_(z) for z in (r, k, v, w)), s0,
-                               SCAN_CHUNK)
+        y, sT = on_local_shards(
+            lambda u, *z: L.chunked_scan(_wkv_chunk, u, z[:4], z[4],
+                                         SCAN_CHUNK),
+            rh, {0: "batch", 2: "head"},
+            [(p["u"], {"head": 0}), *seqs, (s0, hh)], (bh, hh))
     else:
-        # K5 takes plain tensors: under a mesh, each rank's batch and
-        # rwkv_head shard
-        bh, hh = {"batch": 0, "head": 2}, {"batch": 0, "head": 1}
-        rh = heads_(r)
         y, sT = on_local_shards(
             wkv, rh, {0: "batch", 2: "head"},
-            [(rh, bh), (heads_(k), bh), (heads_(v), bh), (heads_(w), bh),
-             (p["u"], {"head": 0}), (s0, hh)], (bh, hh))
+            [*seqs, (p["u"].float(), {"head": 0}), (s0, hh)], (bh, hh))
     y = y.reshape(b, s, d).to(x.dtype)
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], h) * g
     out = y @ p["w_o"].to(x.dtype)

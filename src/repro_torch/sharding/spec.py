@@ -267,6 +267,49 @@ def shard_act(x, *axes):
     return x.redistribute(ctx.mesh, want)
 
 
+def shard_heads(y, axis: str, heads: int):
+    """``y`` (B, S, heads * hd), its heads flattened, placed as
+    ``shard_act`` would place it split into heads (``"batch", "seq",
+    axis, None``): a mesh axis that does not divide ``heads`` leaves the
+    heads unsharded.  Split ``y`` into heads only after this: DTensor
+    cannot unflatten a dimension whose shards cut a head."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not is_dtensor(y):
+        return y
+    want = placements(to_pspec(("batch", "seq", axis), ctx.rules,
+                               mesh=ctx.mesh,
+                               shape=(*y.shape[:2], heads)), ctx.mesh)
+    if tuple(y.placements) == want:
+        return y
+    return y.redistribute(ctx.mesh, want)
+
+
+class _GradAsPlaced(torch.autograd.Function):
+    """Identity whose gradient comes back in its input's placements."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_as_placed(t):
+    """``t``, its gradient redistributed to ``t``'s placements on the way
+    back (a DTensor that requires grad; anything else as it is).  Put it
+    between a view and a product whose gradient DTensor may shard
+    otherwise, where the view's backward could not split that gradient
+    (a flattened weight's heads)."""
+    if is_dtensor(t) and t.requires_grad:
+        return _GradAsPlaced.apply(t)
+    return t
+
+
 def on_local_shards(fn, like, roles: dict, args, out_roles):
     """``fn(*args)`` shard by shard, for a function whose work is
     independent along some dimensions (a kernel's batch and heads, say).
@@ -314,6 +357,7 @@ def on_local_shards(fn, like, roles: dict, args, out_roles):
 
 
 __all__ = ["Param", "PartitionSpec", "ShardCtx", "axes_tree", "axis_sizes",
-           "current_ctx", "init_device", "is_dtensor", "map_axes",
-           "on_local_shards", "param", "placements", "shard_act",
-           "spec_tree", "to_pspec", "use_shard_ctx", "values_tree"]
+           "current_ctx", "grad_as_placed", "init_device", "is_dtensor",
+           "map_axes", "on_local_shards", "param", "placements",
+           "shard_act", "shard_heads", "spec_tree", "to_pspec",
+           "use_shard_ctx", "values_tree"]

@@ -35,6 +35,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import glob, importlib.util, os
+for path in sorted(glob.glob(os.path.join("examples", "torch_*.py"))):
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
 print(" ".join(names))
@@ -51,7 +57,8 @@ SLICE_MODULES = (
     "kernels.mamba.ref", "models.mamba", "models.moe", "models.hybrid",
     "launch.train", "launch.steps", "models.encdec", "launch.mesh",
     "sharding.rules", "obs.slo", "obs.fleet", "train_fabric.rebalancer",
-    "core.profiles", "core.project", "sharding.collectives")
+    "core.profiles", "core.project", "sharding.collectives",
+    "models.flags", "launch.hlo_analysis", "launch.dryrun")
 
 #: The modules the port carries as byte copies (the only change is
 #: ``repro.`` -> ``repro_torch.`` in imports, ``importlib`` ones included).
@@ -66,7 +73,8 @@ COPIES = ("configs/paper_cnn.py", "core/wire.py", "core/tickets.py",
           "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
           "obs/collect.py", "obs/slo.py", "obs/fleet.py",
           "core/profiles.py", "core/project.py",
-          "train_fabric/rebalancer.py", "sharding/rules.py")
+          "train_fabric/rebalancer.py", "sharding/rules.py",
+          "models/flags.py")
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.MULTILINE)
 _IMPORT_MODULE = re.compile(r"(import_module\(f?[\"'])repro\.")
@@ -80,6 +88,9 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
     imported = set(out.stdout.split())
     assert len(imported) >= 60                    # every module was imported
     assert {f"repro_torch.{m}" for m in SLICE_MODULES} <= imported
+    assert {f"examples/torch_{name}.py" for name in (
+        "quickstart", "serve_llm", "train_llm", "sashimi_browser_sim")} \
+        <= imported
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -217,9 +217,8 @@ def _refusal(case):
         b_t, c_t, a, h0 = (z.contiguous() for z in (b_t, c_t, a, h0))
     elif case == "strided":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
-    elif case == "device":
-        dt, x, b_t, c_t, a, h0 = (z.to("meta") for z in
-                                  (dt, x, b_t, c_t, a, h0))
+    elif case == "device":       # dt on the meta device, the rest not
+        dt = dt.to("meta")
     return dt, x, b_t, c_t, a, h0
 
 

@@ -14,6 +14,7 @@ import torch
 from repro.kernels.adagrad.ops import adagrad_update as jax_adagrad_update
 from repro.kernels.server_step.ops import \
     server_step_update as jax_server_step_update
+from repro_torch.kernels import build
 from repro_torch.kernels.adagrad.ops import (adagrad_update,
                                              adagrad_update_leaves)
 from repro_torch.kernels.server_step.ops import server_step_update
@@ -194,13 +195,19 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
 
 
 def test_a_device_without_a_kernel_raises():
-    """Neither the CPU fallback nor a silent no-op: a tensor that is on
-    neither the CPU nor CUDA is refused."""
+    """Neither the CPU fallback nor a silent no-op: every wrapper
+    dispatches through ``build.route``, which refuses a device other than
+    the CPU, CUDA and meta.  Meta tensors take the dry-run's route: empty
+    outputs, a meta launch counted, and no launch."""
+    for kernel in ("server-step", "adagrad"):
+        with pytest.raises(ValueError, match=f"no {kernel} kernel"):
+            build.route(torch.device("xpu"), kernel)
     meta = [t.to("meta") for t in _k1_args()]
-    with pytest.raises(ValueError, match="no server-step kernel"):
-        server_step_update(*meta, lr=0.1)
-    with pytest.raises(ValueError, match="no adagrad kernel"):
-        adagrad_update(*(torch.zeros(4, device="meta"),) * 3, lr=0.1)
+    before = (server_step_update.launches, server_step_update.meta_launches)
+    p, acc = server_step_update(*meta, lr=0.1)
+    assert p.is_meta and acc.is_meta and p.shape == meta[0].shape
+    assert (server_step_update.launches,
+            server_step_update.meta_launches) == (before[0], before[1] + 1)
 
 
 def _leaves(kind, rng):
@@ -258,7 +265,7 @@ def test_adagrad_update_leaves_refuses(bad):
         ps[1], gs[1], accs[1] = (t.to("meta") for t in leaves[1])
     elif bad == "dtype":
         gs[0] = gs[0].to(torch.bfloat16)    # f32 p with a bf16 gradient
-    else:
-        ps, gs, accs = ([t.to("meta") for t in z] for z in (ps, gs, accs))
+    else:                    # p on the meta device, g and acc on the CPU
+        ps = [t.to("meta") for t in ps]
     with pytest.raises((TypeError, ValueError)):
         adagrad_update_leaves(ps, gs, accs, lr=0.1)

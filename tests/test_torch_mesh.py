@@ -482,6 +482,38 @@ def test_sharded_prefill_and_decode_match(world_2x2, arch, layout):
         assert (("data",) in got["sums"]) == (layout == "replicated_batch")
 
 
+def test_heads_the_model_axis_does_not_divide_on_a_2x4_mesh(tmp_path):
+    """A 2x4 world of 8 ranks, where the smoke configs' 2 kv heads do not
+    divide the 4-wide model axis (as qwen3-4b's 8 on the production
+    mesh's 16): one ``split_concurrent`` step of qwen3-4b, its loss and
+    every state leaf against the port's unsharded step, and one
+    ``fsdp_tp`` prefill and decode step of dbrx-132b, its logits within
+    SERVE_TOL of the unsharded run's and its token equal.  The kv heads
+    stay whole on every rank (``layers._project_heads``)."""
+    arch = "qwen3-4b"
+    jcfg, _ = _cfgs(arch, "split_concurrent")
+    jobs = [dict(kind="train", mesh=(2, 4), arch=arch,
+                 strategy="split_concurrent", lr=LR,
+                 moe_capacity=MOE_CAPACITY,
+                 params=_jax_params(arch, jcfg.tie_embeddings),
+                 batches=_batches(jcfg.vocab_size)[:1]),
+            dict(kind="serve", mesh=(2, 4), arch="dbrx-132b",
+                 layout="batch_sharded", gen=1, moe_capacity=MOE_CAPACITY,
+                 params=_jax_params("dbrx-132b", jax_smoke_config(
+                     "dbrx-132b").tie_embeddings),
+                 tokens=_tokens(jax_smoke_config("dbrx-132b").vocab_size))]
+    train, serve = run_world(tmp_path, 8, jobs, timeout=240)
+    mine, mine_m = _port_train(arch, "split_concurrent")
+    for key in ("loss", "total"):
+        np.testing.assert_allclose(float(train["metrics"][0][key]),
+                                   mine_m[0][key], **TOL)
+    _assert_states(train["states"][0], mine[0], "2x4 step 0 vs port")
+    logits, toks, _ = _port_serve("dbrx-132b")
+    for i, (a, b) in enumerate(zip(serve["logits"], logits[:2])):
+        np.testing.assert_allclose(a, b, **SERVE_TOL, err_msg=f"logits {i}")
+    np.testing.assert_array_equal(serve["tokens"][0], toks[0])
+
+
 # --- 3. the expert-parallel MoE -----------------------------------------------
 
 

@@ -282,13 +282,21 @@ def test_spec_tree_and_placements_data_major():
         placements(PartitionSpec(("model", "data")), mesh)
 
 
-def test_production_mesh_and_cardless_local_mesh_raise():
-    """The 256- and 512-rank production meshes are refused with a pointer
-    to the dry-run item; a mesh on ``cuda`` without a card raises rather
-    than fall back to the CPU."""
-    for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_production_mesh(multi_pod=multi_pod)
+def test_production_mesh_and_cardless_local_mesh_raise(tmp_path):
+    """The 256- and 512-rank production meshes are shape-only meshes over a
+    fake process group, refused in a process that holds a real one (a
+    one-rank gloo group here; ``tests/test_torch_dryrun.py`` builds them
+    in a process of their own); a mesh on ``cuda`` without a card raises
+    rather than fall back to the CPU."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        for multi_pod in (False, True):
+            with pytest.raises(RuntimeError, match="real 'gloo' one"):
+                make_production_mesh(multi_pod=multi_pod)
+    finally:
+        dist.destroy_process_group()
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
