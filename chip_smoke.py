@@ -123,7 +123,9 @@ Phases, one line each:
  14. the sharded paths on a 1x1 NCCL mesh: a. phase 9's step through
      ``train_loop(mesh=)`` against the unsharded run; b. the FIG4 server
      step row-sharded, bitwise; c. the qwen3-moe cut at 4 layers served
-     under ``fsdp_tp`` through the expert-parallel MoE;
+     under ``fsdp_tp`` through the expert-parallel MoE, the prefill's
+     cache placed as the JAX prefill's compile places it (k and v: the
+     batch over data; pos replicated);
  15. the dry-run against real steps: phase 9's ``split_concurrent`` step
      and phase 6's prefill (f32) through ``python -m
      repro_torch.launch.dryrun`` (meta device, a 1x1 shape-only mesh, a
@@ -2699,6 +2701,7 @@ def phase_sharded() -> dict:
     the launches of K2, K1 and K3 on them."""
     import torch.distributed as dist
     from datetime import timedelta
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.configs import InputShape, RunConfig, get_arch_config
     from repro_torch.launch import train
@@ -2825,18 +2828,35 @@ def phase_sharded() -> dict:
                     return orig(*a, **k)
                 return run_
 
+            made = {}
+
+            def prefill(p, b, **k):
+                logits, cache = pre(pre_p, b, **k)
+                made.update({key: (tuple(v.placements),
+                                   tuple(v.to_local().shape), tuple(v.shape))
+                             for key, v in cache.items()})
+                return logits, cache
+
             # no_grad: DTensor's ops cannot run on inference-mode tensors
             with torch.no_grad(), \
                     _patched(moe_mod, "_apply_moe_sharded", counting):
                 _zero_counts()
                 t0 = time.perf_counter()
                 got_l, got_t = _greedy(
-                    lambda p, b, **k: pre(pre_p, b, **k),
-                    lambda p, c, t, i: dec(dec_p, c, t, i),
+                    prefill, lambda p, c, t, i: dec(dec_p, c, t, i),
                     None, prompts, SHARD_GEN, mcfg.vocab_size)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = {w.__name__: w.launches for w in WRAPPERS}
+            batch_over_data = (Shard(1), Replicate())
+            want_pl = {"k": batch_over_data, "v": batch_over_data,
+                       "pos": (Replicate(), Replicate())}
+            check({k: pl for k, (pl, _, _) in made.items()} == want_pl
+                  and all(loc == whole for _, loc, whole in made.values()),
+                  f"14c: the prefill's cache placed as the JAX prefill's "
+                  f"compile places it (k and v: the batch over data; pos "
+                  f"replicated), each local shard whole on one rank: "
+                  f"{made}")
             gap = max(_max_err(a, b) for a, b in zip(got_l, want_l))
             tol = SERVE_TOL[arch]
             check(all(_within(a, b, **tol) for a, b in zip(got_l, want_l))
@@ -2856,6 +2876,10 @@ def phase_sharded() -> dict:
                 mesh="1x1", rules="fsdp_tp", decode_layout=layout,
                 batch=SERVE_BATCH, prompt=SHARD_PROMPT, gen=SHARD_GEN,
                 sharded_moe_calls=len(sharded_moe),
+                prefill_cache_placements=";".join(
+                    f"{k}={','.join(map(str, pl))}"
+                    for k, (pl, _, _) in sorted(made.items())).replace(
+                        " ", ""),
                 flash_attention_launches=k3, max_logit_gap=gap,
                 tokens_equal="yes", wall_s=f"{wall:.3f}")
             del mparams, pre_p, dec_p, api

@@ -157,6 +157,40 @@ def cache_axes(cache_spec: dict) -> dict:
     return {k: _CACHE_AXES_BY_KEY[k] for k in cache_spec}
 
 
+#: the cache a prefill makes, placed as the JAX prefill's compile places
+#: it (its bundle gives no ``out_shardings``; XLA's propagation decides):
+#: the batch over the batch axes and the rest replicated on the KV and
+#: cross caches, so never their sequence over ``kv_seq``, not even where
+#: the batch is replicated; the positions replicated; the Mamba states as
+#: decode's, their inner dimension over ``mamba``.  The RWKV state is the
+#: scan's own output and has no entry.
+_PREFILL_CACHE_AXES_BY_KEY = {
+    "k": ("layers", "batch", None, "kv_heads", None),
+    "v": ("layers", "batch", None, "kv_heads", None),
+    "pos": ("layers", None),
+    "cross_k": ("layers", "batch", None, "kv_heads", None),
+    "cross_v": ("layers", "batch", None, "kv_heads", None),
+    "ssm": ("layers", None, "batch", "mamba", None),
+    "conv": ("layers", None, "batch", None, "mamba"),
+}
+
+
+def prefill_cache_full(rules: dict, mesh) -> Callable:
+    """The prefill's cache maker on ``mesh``, the ``full`` of the models'
+    ``init_cache``: ``full(key, shape, fill, dtype, device)`` allocates
+    this rank's shard alone of the leaf ``key``, filled with ``fill``, and
+    returns it as a DTensor of the global ``shape`` placed by the leaf's
+    prefill axes under ``rules``.  No rank makes the whole cache."""
+
+    def full(key, shape, fill, dtype, device):
+        pl = placements(to_pspec(_PREFILL_CACHE_AXES_BY_KEY[key], rules,
+                                 mesh=mesh, shape=shape), mesh)
+        return _from_shard(lambda local: torch.full(
+            local, fill, dtype=dtype, device=device), shape, mesh, pl)
+
+    return full
+
+
 def opt_state_axes(opt_name: str, params_axes):
     """Optimizer-state axes tree mirroring the params' axes."""
     if opt_name == "adagrad":
@@ -231,22 +265,35 @@ def _is_spec(x) -> bool:
                 and not is_dtensor(x))
 
 
-def _meta_leaf(x, mesh, pl):
-    """A shape-only leaf as a meta tensor, or with placements ``pl`` a
-    DTensor of meta tensors whose local shard has this rank's shape (an
-    uneven split's included); nothing is allocated."""
-    shape, dtype = ((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
-                    else (tuple(x[0]), x[1]))
-    if pl is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
+def _from_shard(make, shape, mesh, pl):
+    """A DTensor of the global ``shape`` with placements ``pl`` whose
+    local shard is ``make(local_shape)``, at this rank's shape (an uneven
+    split's included): nothing but the shard is allocated."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
-    return DTensor.from_local(
-        torch.empty(local, dtype=dtype, device="meta"), mesh, pl,
-        run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+    stride, n = [], 1
+    for size in reversed(shape):     # contiguous; a whole-shape tensor
+                                     # made for its stride would count in
+                                     # the dry-run's high-water mark
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(make(local), mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _meta_leaf(x, mesh, pl):
+    """A shape-only leaf as a meta tensor, or with placements ``pl`` a
+    DTensor of meta tensors whose local shard has this rank's shape;
+    nothing is allocated."""
+    shape, dtype = ((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                    else (tuple(x[0]), x[1]))
+    if pl is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return _from_shard(lambda local: torch.empty(local, dtype=dtype,
+                                                 device="meta"),
+                       shape, mesh, pl)
 
 
 def _place_leaf(x, mesh, pl):
@@ -467,8 +514,11 @@ def build_prefill_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
                        mesh, *, global_batch: int | None = None) -> StepBundle:
     """The prefill step on ``mesh``: ``bundle(params, batch, *,
     cache_len=None) -> (logits, cache)``; K3 runs on each rank's batch and
-    head shard, and the cache comes back replicated (the decode step
-    places it by its own layout)."""
+    head shard.  The cache comes back as the JAX prefill's compile places
+    it (``_PREFILL_CACHE_AXES_BY_KEY``: the batch over ``data`` under
+    ``fsdp_tp``), each rank having made and written its own shard alone
+    (:func:`prefill_cache_full`); the decode step redistributes it once to
+    its own layout (:meth:`StepBundle.place`)."""
     cfg = arch_for_run(cfg, shape, run.strategy)
     dtype = getattr(torch, run.compute_dtype)
     api = build_model(cfg, compute_dtype=dtype, remat=False)
@@ -479,8 +529,10 @@ def build_prefill_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
     in_pl = (placement_tree(p_axes, params_spec, rules, mesh),
              placement_tree(batch_axes(batch_spec), batch_spec, rules, mesh))
 
+    full = prefill_cache_full(rules, mesh)
+
     def fn(params, batch, **kw):
-        return api.prefill(params, batch, **kw)
+        return api.prefill(params, batch, full=full, **kw)
 
     return StepBundle(fn, (params_spec, batch_spec), in_pl, rules, mesh,
                       api, cfg)
@@ -530,6 +582,5 @@ def build_step(cfg: ArchConfig, run: RunConfig, shape: InputShape, mesh,
 __all__ = ["LONG_CONTEXT_WINDOW", "StepBundle", "arch_for_run", "batch_axes",
            "build_decode_step", "build_prefill_step", "build_step",
            "build_train_step", "cache_axes", "kernel_launches", "make_rules",
-           "opt_state_axes",
-           "place", "placement_tree", "resolve_decode_layout",
-           "train_parts", "train_state_axes"]
+           "opt_state_axes", "place", "placement_tree", "prefill_cache_full",
+           "resolve_decode_layout", "train_parts", "train_state_axes"]

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer, replicated, stack_layers
-from repro_torch.sharding.spec import is_dtensor, shard_act
+from repro_torch.models.transformer import layer, stack_layers
+from repro_torch.sharding.spec import shard_act
 
 
 def _init_enc_block(generator, cfg):
@@ -137,31 +137,31 @@ def forward_train(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window=None,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", full=L.full_whole):
     """Self-attention KV ring per decoder layer, and the cross K/V over
-    the ``encoder_seq_len`` frames."""
+    the ``encoder_seq_len`` frames, each leaf made by ``full``
+    (``transformer.init_cache``)."""
     window = cfg.sliding_window if window is None else window
     dev = resolve_device(device)
     size = min(window, cache_len) if window else cache_len
     kv, hd, lyr = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
     cross = (lyr, batch, cfg.encoder_seq_len, kv, hd)
     return {
-        "k": torch.zeros((lyr, batch, size, kv, hd), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros((lyr, batch, size, kv, hd), dtype=dtype,
-                         device=dev),
-        "pos": torch.full((lyr, size), -1, dtype=torch.int32, device=dev),
-        "cross_k": torch.zeros(cross, dtype=dtype, device=dev),
-        "cross_v": torch.zeros(cross, dtype=dtype, device=dev),
+        "k": full("k", (lyr, batch, size, kv, hd), 0, dtype, dev),
+        "v": full("v", (lyr, batch, size, kv, hd), 0, dtype, dev),
+        "pos": full("pos", (lyr, size), -1, torch.int32, dev),
+        "cross_k": full("cross_k", cross, 0, dtype, dev),
+        "cross_v": full("cross_v", cross, 0, dtype, dev),
     }
 
 
 def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
-            window=None, cache_len: int | None = None):
+            window=None, cache_len: int | None = None, full=L.full_whole):
     """Encode the frames, run the decoder prompt, build the self and cross
-    caches.  The cross K/V are computed once, by the cross-attention (the
-    JAX package computes them a second time for the cache).  Returns
-    (last_logits (B,1,V), cache)."""
+    caches, each leaf made by ``full`` (:func:`init_cache`).  The cross
+    K/V are computed once, by the cross-attention (the JAX package
+    computes them a second time for the cache).  Returns (last_logits
+    (B,1,V), cache)."""
     window = cfg.sliding_window if window is None else window
     if frames.shape[1] != cfg.encoder_seq_len:
         raise ValueError(f"frames hold {frames.shape[1]} positions, the "
@@ -170,12 +170,8 @@ def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
     enc_out = encode(params, cfg, frames, dtype=dtype)
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, window=window, dtype=dtype,
-                       device=enc_out.device)
+                       device=enc_out.device, full=full)
     x = _embed_decoder(params, cfg, tokens, dtype)
-    if is_dtensor(x):
-        # under a mesh the cache is made whole on every rank; the decode
-        # step places it by its own layout
-        cache = replicated(cache, x.device_mesh)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     keep, slots = L.prefill_slots(positions, size)

@@ -24,8 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.mamba import _dims as mamba_dims
 from repro_torch.models.mamba import init_mamba, mamba_forward
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.models.transformer import layer, replicated, stack_layers
-from repro_torch.sharding.spec import Param, init_device, is_dtensor
+from repro_torch.models.transformer import layer, stack_layers
+from repro_torch.sharding.spec import Param, init_device
 
 
 def _period_layout(cfg):
@@ -165,41 +165,37 @@ def forward_train(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window=None,
-               dtype=torch.bfloat16, device="cuda"):
-    """Hybrid cache: attention ring buffers + mamba states, per period."""
+               dtype=torch.bfloat16, device="cuda", full=L.full_whole):
+    """Hybrid cache: attention ring buffers + mamba states, per period,
+    each leaf made by ``full`` (``transformer.init_cache``)."""
     window = cfg.sliding_window if window is None else window
     dev = resolve_device(device)
     n_periods, n_mamba = _counts(cfg)
     size = min(window, cache_len) if window else cache_len
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     d_inner, _, d_state, d_conv = mamba_dims(cfg)
+    kv_shape = (n_periods, batch, size, kv, hd)
     return {
-        "k": torch.zeros((n_periods, batch, size, kv, hd), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros((n_periods, batch, size, kv, hd), dtype=dtype,
-                         device=dev),
-        "pos": torch.full((n_periods, size), -1, dtype=torch.int32,
-                          device=dev),
-        "ssm": torch.zeros((n_periods, n_mamba, batch, d_inner, d_state),
-                           dtype=torch.float32, device=dev),
-        "conv": torch.zeros((n_periods, n_mamba, batch, d_conv - 1, d_inner),
-                            dtype=dtype, device=dev),
+        "k": full("k", kv_shape, 0, dtype, dev),
+        "v": full("v", kv_shape, 0, dtype, dev),
+        "pos": full("pos", (n_periods, size), -1, torch.int32, dev),
+        "ssm": full("ssm", (n_periods, n_mamba, batch, d_inner, d_state), 0,
+                    torch.float32, dev),
+        "conv": full("conv", (n_periods, n_mamba, batch, d_conv - 1,
+                              d_inner), 0, dtype, dev),
     }
 
 
 def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
-            cache_len: int | None = None):
-    """Full-sequence forward that also builds the cache.  Returns
-    (last_logits (B,1,V), cache)."""
+            cache_len: int | None = None, full=L.full_whole):
+    """Full-sequence forward that also builds the cache, each leaf made by
+    ``full`` (:func:`init_cache`).  Returns (last_logits (B,1,V),
+    cache)."""
     window = cfg.sliding_window if window is None else window
     x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, cache_len or s, window=window, dtype=dtype,
-                       device=x.device)
-    if is_dtensor(x):
-        # under a mesh the cache is made whole on every rank; the decode
-        # step places it by its own layout
-        cache = replicated(cache, x.device_mesh)
+                       device=x.device, full=full)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     keep, slots = L.prefill_slots(positions, size)

@@ -436,6 +436,14 @@ def flash_attention_sharded(q, k, v, *, causal: bool, window: int):
     return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
+def full_whole(key, shape, fill, dtype, device):
+    """A cache leaf made whole on ``device``: the ``full`` the models'
+    ``init_cache`` takes by default.  ``key`` names the leaf, for a maker
+    that places each leaf by its own axes
+    (``launch.steps.prefill_cache_full``)."""
+    return torch.full(shape, fill, dtype=dtype, device=device)
+
+
 def prefill_slots(positions, size: int) -> tuple:
     """A prefill's cache writes: ``(keep, slots)``, the positions kept
     (all, or the trailing window of ``size`` when the prompt is longer)

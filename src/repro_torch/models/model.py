@@ -256,9 +256,10 @@ def build_model(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
         loss = lm_loss(logits, batch["labels"], batch["mask"])
         return loss + aux, {"loss": loss, "aux": aux}
 
-    def prefill(params, batch, *, window=None, cache_len=None):
+    def prefill(params, batch, *, window=None, cache_len=None,
+                full=L.full_whole):
         return mod.prefill(params, cfg, batch["tokens"], dtype=compute_dtype,
-                           window=window, cache_len=cache_len,
+                           window=window, cache_len=cache_len, full=full,
                            **_fwd_kwargs(batch))
 
     def decode_step(params, cache, token, index, *, window=None):

@@ -289,7 +289,11 @@ def init_cache(cfg, batch: int, cache_len: int = 0, *, window=None,
 
 
 def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
-            cache_len=None):
+            cache_len=None, full=None):
+    """Full-sequence forward: (last_logits (B,1,V), the blocks' final
+    states).  The state is the scan's output, placed as the scan placed
+    it under a mesh; ``full`` (the other families' cache maker) is
+    unused."""
     x = _embed(params, cfg, tokens, dtype)
     x, cache = _run(params, cfg, x, lambda i: None)
     x = L.apply_norm(params["final_norm"], cfg, x)

@@ -27,7 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.sharding.spec import Param, is_dtensor, param
+from repro_torch.sharding.spec import Param, param
 from repro_torch.tree import tree_flatten, tree_map
 
 
@@ -54,15 +54,6 @@ def stack_layers(init_one, n: int):
             dst[i].copy_(p.value)
     return stack_layer_axes(tdef.unflatten(
         [Param(v, p.axes) for v, p in zip(stacked, leaves)]))
-
-
-def replicated(tree, mesh):
-    """Every tensor of ``tree`` as a DTensor replicated on ``mesh`` (each
-    rank's copy is the same)."""
-    from torch.distributed.tensor import Replicate, distribute_tensor
-    rep = [Replicate()] * mesh.ndim
-    return tree_map(lambda t: distribute_tensor(t, mesh, rep,
-                                                src_data_rank=None), tree)
 
 
 def layer(blocks, i: int):
@@ -176,23 +167,26 @@ def forward_train(params, cfg, tokens, *, patches=None,
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window=None,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", full=L.full_whole):
+    """Every layer's KV ring (``pos``: each slot's position, -1 empty).
+    ``full(key, shape, fill, dtype, device)`` makes each leaf: whole by
+    default, this rank's shard alone with a sharded prefill's maker."""
     window = cfg.sliding_window if window is None else window
     device = resolve_device(device)
     size = min(window, cache_len) if window else cache_len
     shape = (cfg.num_layers, batch, size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((cfg.num_layers, size), -1, dtype=torch.int32,
-                          device=device),
+        "k": full("k", shape, 0, dtype, device),
+        "v": full("v", shape, 0, dtype, device),
+        "pos": full("pos", (cfg.num_layers, size), -1, torch.int32, device),
     }
 
 
 def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
-            window=None, cache_len: int | None = None):
-    """Full-sequence forward that also builds the KV cache.
+            window=None, cache_len: int | None = None, full=L.full_whole):
+    """Full-sequence forward that also builds the KV cache, each leaf made
+    by ``full`` (:func:`init_cache`).
 
     Returns (last_logits (B,1,V), cache).  The cache covers positions
     [0, S) (ring-compressed to the window if one is set); for vlm S counts
@@ -202,11 +196,7 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     b, s, _ = x.shape
     cache_len = cache_len or s
     cache = init_cache(cfg, b, cache_len, window=window, dtype=dtype,
-                       device=x.device)
-    if is_dtensor(x):
-        # under a mesh the cache is made whole on every rank; the decode
-        # step places it by its own layout
-        cache = replicated(cache, x.device_mesh)
+                       device=x.device, full=full)
     size = cache["pos"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     keep, slots = L.prefill_slots(positions, size)

@@ -23,9 +23,12 @@ What is held:
 * a prefill and 4 greedy decode steps under ``fsdp_tp`` in both decode
   layouts (qwen3-4b; dbrx-132b through the sharded MoE; rwkv6-1.6b with
   K5's plain version on each rank's batch and head shard; the Jamba smoke
-  cut with K4's on its batch and inner shard, K3's and the sharded MoE):
-  logits within chip_smoke's ``SERVE_TOL`` (1e-3) and equal greedy
-  tokens.
+  cut with K4's on its batch and inner shard, K3's and the sharded MoE;
+  qwen3-4b and the Jamba cut on the 1x2 mesh too): logits within
+  chip_smoke's ``SERVE_TOL`` (1e-3) and equal greedy tokens; the
+  prefill's cache placed as the JAX prefill's (the batch over data),
+  rank 0 holding its own shard of each leaf alone (1/``data`` of the KV
+  cache), and redistributed once by the decode step to its layout.
 * ``_apply_moe_sharded`` on dbrx-132b's smoke MoE (E 4) on 1x2 and 2x2
   meshes, and its partial-sum decode schedule: forward and gradients
   within 2e-5 (``tests/test_moe.py``'s bar) of the local dispatch; its
@@ -89,6 +92,22 @@ DATA_SHARDS = 2
 SERVE = [(arch, layout) for arch in ("qwen3-4b", "dbrx-132b", "rwkv6-1.6b",
                                     "jamba-1.5-large-398b")
          for layout in ("batch_sharded", "replicated_batch")]
+#: the serve cases of the 1x2 world (one data shard: the batch is whole on
+#: every rank, the heads and Mamba's inner dimension split)
+SERVE_1X2 = [(arch, layout) for arch in ("qwen3-4b", "jamba-1.5-large-398b")
+             for layout in ("batch_sharded", "replicated_batch")]
+#: the prefill's cache placements on a (data, model) mesh, as the JAX
+#: prefill's compile places it (``tests/test_torch_prefill_cache.py``):
+#: the batch over data, Mamba's inner dimension and rwkv's WKV heads over
+#: model, the positions replicated
+PREFILL_CACHE_PLACEMENTS = {
+    "k": "(Shard(dim=1), Replicate())", "v": "(Shard(dim=1), Replicate())",
+    "pos": "(Replicate(), Replicate())",
+    "ssm": "(Shard(dim=2), Shard(dim=3))",
+    "conv": "(Shard(dim=2), Shard(dim=4))",
+    "wkv": "(Shard(dim=1), Shard(dim=2))",
+    "shift_tm": "(Shard(dim=1), Replicate())",
+    "shift_cm": "(Shard(dim=1), Replicate())"}
 PROMPT, GEN = 12, 4
 
 
@@ -196,13 +215,13 @@ def _tokens(vocab: int) -> np.ndarray:
         0, vocab, (B, PROMPT)).astype(np.int32)
 
 
-def _serve_jobs():
-    return [dict(kind="serve", mesh=(2, 2), arch=arch, layout=layout,
+def _serve_jobs(mesh=(2, 2), cases=SERVE):
+    return [dict(kind="serve", mesh=mesh, arch=arch, layout=layout,
                  gen=GEN, moe_capacity=MOE_CAPACITY,
                  params=_jax_params(arch, jax_smoke_config(arch)
                                     .tie_embeddings),
                  tokens=_tokens(jax_smoke_config(arch).vocab_size))
-            for arch, layout in SERVE]
+            for arch, layout in cases]
 
 
 def _moe_inputs(shape):
@@ -290,8 +309,9 @@ def world_2x2(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world_1x2(tmp_path_factory):
-    jobs = [_moe_job("1x2"), _server_job(2)]
-    res = run_world(tmp_path_factory.mktemp("w2"), 2, jobs, timeout=180)
+    jobs = ([_moe_job("1x2"), _server_job(2)]
+            + _serve_jobs((1, 2), SERVE_1X2))
+    res = run_world(tmp_path_factory.mktemp("w2"), 2, jobs, timeout=240)
     return {_job_key(j): r for j, r in zip(jobs, res)}
 
 
@@ -451,14 +471,31 @@ def _port_serve(arch: str):
     return out, toks, len(calls)
 
 
+def _assert_prefill_cache(got, data: int, model: int):
+    """The prefill's cache placed as the JAX prefill's, and rank 0 holding
+    its own shard of each leaf alone: the KV cache 1/``data`` of the
+    whole."""
+    sizes = {"data": data, "model": model}
+    for key, (pl, local, whole) in got["prefill_cache"].items():
+        assert pl == PREFILL_CACHE_PLACEMENTS[key], key
+        shards = 1
+        for axis, q in zip(sizes, pl.strip("()").split(", ")):
+            shards *= sizes[axis] if q.startswith("Shard") else 1
+        assert local * shards == whole, key
+    kv = got["prefill_cache"].get("k")
+    if kv is not None:
+        assert kv[1] * data == kv[2]
+
+
 @pytest.mark.parametrize("arch,layout", SERVE)
 def test_sharded_prefill_and_decode_match(world_2x2, arch, layout):
     """Prefill and 4 greedy decode steps under fsdp_tp on the 2x2 mesh:
-    the cache placed by the layout, the MoE on its expert-parallel path
-    (its partial-sum schedule in the replicated-batch layout), logits
-    within SERVE_TOL of the port's and JAX's unsharded runs, tokens
-    equal."""
+    the prefill's cache batch-sharded over data, the decode's placed by
+    the layout, the MoE on its expert-parallel path (its partial-sum
+    schedule in the replicated-batch layout), logits within SERVE_TOL of
+    the port's and JAX's unsharded runs, tokens equal."""
     got = world_2x2[("serve", arch, layout)]
+    _assert_prefill_cache(got, 2, 2)
     # k: (layers, batch, kv_seq, kv_heads, hd); batch over data and the
     # sequence over model, or the sequence over (data, model); rwkv's WKV
     # state (layers, batch, rwkv_head, hd, hd): its heads over model
@@ -480,6 +517,22 @@ def test_sharded_prefill_and_decode_match(world_2x2, arch, layout):
     assert got["moe_sharded_calls"] == mine[2]
     if mine[2]:
         assert (("data",) in got["sums"]) == (layout == "replicated_batch")
+
+
+@pytest.mark.parametrize("arch,layout", SERVE_1X2)
+def test_sharded_prefill_and_decode_match_on_1x2(world_1x2, arch, layout):
+    """The same on the 1x2 mesh: the prefill's cache placed as on 2x2
+    (one data shard holds the whole batch), then redistributed by the
+    decode layout; logits within SERVE_TOL of the port's unsharded run,
+    tokens equal."""
+    got = world_1x2[("serve", arch, layout)]
+    _assert_prefill_cache(got, 1, 2)
+    logits, toks, _ = _port_serve(arch)
+    assert len(got["logits"]) == len(logits) == GEN + 1
+    for i, (a, b) in enumerate(zip(got["logits"], logits)):
+        np.testing.assert_allclose(a, b, **SERVE_TOL, err_msg=f"logits {i}")
+    for a, b in zip(got["tokens"], toks):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_heads_the_model_axis_does_not_divide_on_a_2x4_mesh(tmp_path):

@@ -118,8 +118,14 @@ def _serve(job):
     M._apply_moe_sharded, M.sum_over = counting, summing
     try:
         logits, cache = pre(params, {"tokens": tokens}, cache_len=s + gen)
+        # each leaf of the prefill's cache: its placements, rank 0's local
+        # bytes and the whole leaf's
         out = {"logits": [_np(logits)], "tokens": [],
-               "cache_placements": {}}
+               "cache_placements": {},
+               "prefill_cache": {k: (str(tuple(v.placements)),
+                                     v.to_local().numel() * v.element_size(),
+                                     v.numel() * v.element_size())
+                                 for k, v in cache.items()}}
         v = cfg.vocab_size
         tok = torch.from_numpy(_np(logits)[:, -1, :v].argmax(-1)[:, None]
                                .astype(np.int32))
