@@ -48,21 +48,32 @@ Phases, one line each:
      ``adagrad(use_kernel=True)``, one K2 launch a step for all 8 leaves;
   6. serving qwen3-4b at full width and depth (f32, random weights from a
      seed): ``generate`` with batch 4, prompt 512, 16 new tokens, one K3
-     launch per layer of the prefill; every served position's logits
-     against a teacher-forced ``forward_features`` over prompt + generated
-     tokens, and the first and last K3 launch re-run through the plain
-     version; then a planted fault (each decode step one cache slot
-     early) must fail the served-vs-forward check;
+     launch per layer of the prefill, each decode step a replay of one
+     CUDA graph of ``decode_step`` (``launch.serve.DecodeGraph``: the
+     first step runs eagerly, then is captured; its kernel launches are
+     counted at each replay); every served position's logits against a
+     teacher-forced ``forward_features`` over prompt + generated tokens,
+     and the first and last K3 launch re-run through the plain version;
+     the same prompts served by a plain loop of ``decode_step``, whose
+     tokens and logits the captured run must equal (bit for bit; within
+     the cell's tolerance with a MoE), each decode's median ms a step, and
+     each one more step traced for its idle share; then a planted fault
+     (each decode step one cache slot early, captured with the step) and
+     a graph runner that never updates its index buffer (every replay at
+     index 0; not for rwkv6, whose step reads no index) must each fail
+     the served-vs-forward check;
   7. the same for rwkv6-1.6b, with one K5 launch per layer of the prefill
-     and of each decode step; its planted fault drops the WKV state the
-     prefill hands over;
+     and of each decode step (inside the graph; its launch re-run is the
+     last replay's); its planted fault drops the WKV state the prefill
+     hands over;
   8. the same for jamba-1.5-large-398b at every published width, cut to 2
      layers (a Mamba layer with a dense FFN, then an attention layer with
      the 16-expert MoE FFN): one K4 launch for the prefill and one for
-     each decode step, one K3 launch; the MoE's dropped assignments are
-     counted in both passes (a batch row that a drop touched is left out
-     of the comparison); its planted fault drops the SSM state the prefill
-     hands over;
+     each decode step (inside the graph), one K3 launch; the MoE's dropped
+     assignments are counted in the served prefill, the plain loop's
+     decode steps and the forward (a batch row that a drop touched is
+     left out of the comparison); its planted fault drops the SSM state
+     the prefill hands over;
   9. training qwen1.5-0.5b at every published width and depth (untied for
      the split strategies, f32, random weights from a seed) through
      ``repro_torch.launch.train.train_loop`` at lr 3 (``TRAIN_LR``):
@@ -1294,8 +1305,11 @@ def _recording(module, attr: str, every: bool = False):
     copies, so the served run it times does no extra work: the models hand
     each kernel fresh tensors and change none of them afterwards (the KV
     cache is written by copy, the RWKV and SSM states are stacked anew each
-    step).  Were one changed, its re-run would disagree and fail the check,
-    not pass it."""
+    step, and the decode graph copies them into the cache only when the
+    next step starts).  A call made while the decode graph was captured
+    keeps the graph's own tensors, which hold the last replay's inputs and
+    outputs.  Were one changed, its re-run would disagree and fail the
+    check, not pass it."""
     original = getattr(module, attr)
     calls = []
 
@@ -1402,35 +1416,90 @@ def _state_dropped(*keys: str):
     return fault
 
 
-def _serve(api, params, prompts, extras):
-    """``generate`` (``extras``: its ``extra_inputs``) with each prefill
-    and decode step timed by CUDA events and its last position's logits
-    kept: (tokens, logits (B, 1 + GEN, V), the steps' ms, the last
-    cache)."""
-    from repro_torch.launch.serve import generate
+def _event_timed(fn, spans: list, served: list, vocab: int):
+    """``fn`` (a prefill, a decode step or a ``DecodeGraph.step``) timed by
+    CUDA events around each call, outside any graph, with its last
+    position's logits cloned into ``served``."""
+    def call(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        logits = out[0] if isinstance(out, tuple) else out
+        served.append(logits[:, -1, :vocab].clone())
+        return out
+    return call
 
-    vocab = api.cfg.vocab_size
-    served, spans, last = [], [], {}
 
-    def timed(fn):
-        def call(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, cache = fn(*args, **kwargs)
-            end.record()
-            spans.append((start, end))
-            served.append(logits[:, -1, :vocab].clone())
-            last["cache"] = cache
-            return logits, cache
-        return call
+def _serve(api, params, prompts, extras, graph=None):
+    """``generate`` (``extras``: its ``extra_inputs``) through the decode
+    graph runner ``graph`` (``launch.serve.DecodeGraph`` by default, or a
+    subclass with a planted fault), its prefill and each runner step timed
+    by CUDA events and the last position's logits kept: (tokens, logits
+    (B, 1 + GEN, V), the calls' ms (the prefill, the first step, run
+    eagerly and then captured, and the replays), the runner)."""
+    from repro_torch.launch import serve
 
-    toks = generate(dataclasses.replace(api, prefill=timed(api.prefill),
-                                        decode_step=timed(api.decode_step)),
-                    params, prompts, gen=SERVE_GEN, extra_inputs=extras)
+    base = graph or serve.DecodeGraph
+    served, spans, made = [], [], []
+
+    class Timed(base):
+        step = _event_timed(base.step, spans, served, api.cfg.vocab_size)
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    timed = dataclasses.replace(api, prefill=_event_timed(
+        api.prefill, spans, served, api.cfg.vocab_size))
+    with _patched(serve, "DecodeGraph", lambda _: Timed):
+        toks = serve.generate(timed, params, prompts, gen=SERVE_GEN,
+                              extra_inputs=extras)
     torch.cuda.synchronize()
+    # emptied, so that the runner (and the weights and cache it holds) is
+    # freed with the caller's last reference, not at a later collection
+    runner, = made
+    made.clear()
     return (toks, torch.stack(served, 1),
-            [s.elapsed_time(e) for s, e in spans], last["cache"])
+            [s.elapsed_time(e) for s, e in spans], runner)
+
+
+def _serve_eager(api, params, prompts, extras):
+    """The plain loop ``generate`` ran before its decode graph: the prefill,
+    then ``api.decode_step`` called from Python for each token, each call
+    timed by CUDA events: (tokens, logits (B, 1 + GEN, V), the calls' ms,
+    the last cache)."""
+    served, spans = [], []
+    vocab = api.cfg.vocab_size
+    prefill = _event_timed(api.prefill, spans, served, vocab)
+    step = _event_timed(api.decode_step, spans, served, vocab)
+    s = _prefix(api.cfg) + prompts.shape[1]
+    with torch.inference_mode():
+        logits, cache = prefill(params, dict(extras, tokens=prompts),
+                                cache_len=s + SERVE_GEN)
+        out = []
+        tok = logits[:, :, :vocab].argmax(-1).to(torch.int32)
+        for i in range(SERVE_GEN):
+            out.append(tok[:, 0])
+            logits, cache = step(params, cache, tok, s + i)
+            tok = logits[:, :, :vocab].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return (torch.stack(out, 1), torch.stack(served, 1),
+            [s_.elapsed_time(e) for s_, e in spans], cache)
+
+
+def _stale_index():
+    """A planted fault: a decode graph runner that never updates its index
+    buffer, so every replay decodes at index 0."""
+    from repro_torch.launch.serve import DecodeGraph
+
+    class StaleIndex(DecodeGraph):
+        def _load(self, token, index):
+            self.token.copy_(token)
+
+    return StaleIndex
 
 
 def _prefix(cfg) -> int:
@@ -1503,26 +1572,38 @@ def _no_drop(cfg):
 
 def phase_serve(phase: str, cfg, kernels, fault, moe=None,
                 prompt: int = SERVE_PROMPT) -> dict:
-    """``generate`` on ``cfg`` at its widths, f32, with every launch of
+    """``generate`` on ``cfg`` at its widths, f32, each decode step a replay
+    of a CUDA graph (``launch.serve.DecodeGraph``), with every launch of
     each kernel of ``kernels`` (``OnPath``) counted and the ones it names
     recorded; then the checks described in the module docstring.  Each
-    kernel must launch its ``launches`` times while serving.  ``prompt``
-    positions: a vlm's patches, then its text; an encdec model's decoder
-    prompt, beside its ``encoder_seq_len`` frames.  With ``moe`` (the
-    module through which the model calls ``apply_moe``) the dropped
-    assignments of the served run and of the teacher-forced forward are
-    counted, and a batch row that any drop touched is left out of the
-    served-vs-forward comparison; if no row is left, the same prompts are
-    served and compared again at a capacity factor where nothing drops
-    (``_no_drop``), and both are printed.  Then ``fault`` (the api with a
-    planted fault) serves the same prompts, and the served-vs-forward check
-    must fail on it.  Last, the kernels of one more decode step and of one
-    more prefill are traced: the decode step's device time beside its time
-    as served gives the device's idle share while decoding, and both are
-    split into the repository's kernels, matrix products and the rest, and
-    the prefill is timed once more warm (``prefill_warm_ms``; the served
-    prefill is the model's first call, which pays for first use).
-    Returns each kernel's launches by name."""
+    kernel must launch its ``launches`` times while serving (the graph's
+    launches counted at each replay).  ``prompt`` positions: a vlm's
+    patches, then its text; an encdec model's decoder prompt, beside its
+    ``encoder_seq_len`` frames.
+
+    The same prompts are then served by a plain loop of
+    ``api.decode_step`` (``_serve_eager``): its tokens must equal the
+    captured ones, and its logits too, bit for bit, or within the cell's
+    ``SERVE_TOL`` with a MoE (whose dispatch accumulates; the gap is
+    printed).  With ``moe`` (the module through which the model calls
+    ``apply_moe``) the dropped assignments of the served prefill, of the
+    plain loop's decode steps (a replay runs no Python to record) and of
+    the teacher-forced forward are counted, and a batch row that any drop
+    touched is left out of the served-vs-forward comparison; if no row is
+    left, the same prompts are served and compared again at a capacity
+    factor where nothing drops (``_no_drop``), and both are printed.  Then
+    ``fault`` (the api with a planted fault, captured with the step) and a
+    runner that never updates its index buffer (``_stale_index``; not for
+    a family whose step reads no index) serve the same prompts, and the
+    served-vs-forward check must fail on each.  Last, one more decode step
+    is traced as a replay and as an eager call, and one more prefill: each
+    step's device time beside its median as served gives the device's idle
+    share while decoding, and all are split into the repository's
+    kernels, matrix products and the rest; the prefill is timed once more
+    warm (``prefill_warm_ms``; the served prefill is the model's first
+    call, which pays for first use).  Returns each kernel's launches by
+    name."""
+    from repro_torch.launch.serve import DecodeGraph
     from repro_torch.models.model import build_model, count_params_analytic
     from repro_torch.sharding.spec import values_tree
 
@@ -1556,11 +1637,21 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             t0 = time.perf_counter()
-            toks, served, ms, cache = _serve(api, params, prompts, extras)
+            toks, served, ms, runner = _serve(api, params, prompts, extras)
             wall = time.perf_counter() - t0
             counts = {w.__name__: w.launches for w in WRAPPERS}
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_replay = {w.__name__: n for w, n in runner.per_replay.items()}
         served_moe = moe_calls[:]
+        del moe_calls[:]
+        # the plain loop the graph replaces, on the same prompts
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eager_toks, eager_served, eager_ms, eager_cache = _serve_eager(
+            api, params, prompts, extras)
+        eager_wall = time.perf_counter() - t0
+        eager_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        eager_moe = moe_calls[:]
         del moe_calls[:]
         # the served logits against one teacher-forced forward over the
         # same tokens
@@ -1575,23 +1666,37 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
           f"{arch}: tokens of shape {(SERVE_BATCH, SERVE_GEN)} in the "
           f"vocabulary, got {tuple(toks.shape)} {toks.dtype}")
     check(bool(torch.isfinite(served).all()), f"{arch}: finite logits")
+    check(torch.equal(toks, eager_toks),
+          f"{arch}: the captured decode's tokens equal the plain loop's")
+    graph_err = _max_err(served, eager_served)
+    graph_bitwise = torch.equal(served, eager_served)
+    if moe is None:
+        check(graph_bitwise, f"{arch}: the captured decode's logits equal "
+              f"the plain loop's bit for bit: max err {graph_err}")
+    else:
+        check(_within(served, eager_served, **tol),
+              f"{arch}: the captured decode's logits within {tol} of the "
+              f"plain loop's: max err {graph_err}")
+    del eager_served
 
     rows = torch.ones(SERVE_BATCH, dtype=torch.bool, device="cuda")
     row_fields = {}
     if moe is not None:
-        n_moe = len(served_moe) // (1 + SERVE_GEN)
-        check(n_moe > 0 and len(served_moe) == n_moe * (1 + SERVE_GEN)
-              and len(moe_calls) == n_moe,
-              f"{arch}: one apply_moe call a MoE layer and pass")
+        n_moe = len(moe_calls)
+        check(n_moe > 0 and len(served_moe) == 3 * n_moe
+              and len(eager_moe) == (1 + SERVE_GEN) * n_moe,
+              f"{arch}: one apply_moe call a MoE layer and pass (the "
+              f"served prefill, its first step and the capture; the plain "
+              f"loop's prefill and steps; the forward)")
         drops = {"prefill": _moe_drops(served_moe[:n_moe]),
-                 "decode": _moe_drops(served_moe[n_moe:]),
+                 "decode": _moe_drops(eager_moe[n_moe:]),
                  "forward": _moe_drops(moe_calls)}
         for name, d in drops.items():
             rows &= ~d["rows"]
             row_fields[f"moe_{name}_dropped"] = d["dropped"]
             row_fields[f"moe_{name}_max_load"] = (f"{d['max_load']}/"
                                                   f"{d['capacity']}")
-    del served_moe, moe_calls
+    del served_moe, eager_moe, moe_calls
     row_fields["rows_compared"] = f"{int(rows.sum())}/{SERVE_BATCH}"
     # the api whose served run is held to its forward (and planted with
     # the fault): the published one, unless drops touched every row
@@ -1599,7 +1704,7 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
     if not rows.any():
         held = build_model(_no_drop(cfg), compute_dtype=torch.float32)
         with _recording(moe, "apply_moe", every=True) as calls:
-            held_toks, served, _, _ = _serve(held, params, prompts, extras)
+            held_toks, served = _serve(held, params, prompts, extras)[:2]
             tf = _teacher_forced(held, params, prompts, held_toks, extras)
         nodrop = _moe_drops(calls)
         del calls, held_toks
@@ -1625,7 +1730,8 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
     logits_absmax = float(tf.abs().max())
     del tf
 
-    # the named launches of each kernel against its plain version
+    # the named launches of each kernel against its plain version (a
+    # launch the capture recorded holds the last replay's tensors)
     rerun = {}
     for k, calls in zip(kernels, launched):
         name = k.wrapper.__name__
@@ -1650,21 +1756,32 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
                 and k_.shape[1] != q.shape[1] else "")
     del launched
 
-    # the same check must fail on a planted fault
-    bad_api = fault(held)
-    bad_toks, bad_served, _, _ = _serve(bad_api, params, prompts, extras)
-    bad_tf = _teacher_forced(held, params, prompts, bad_toks, extras)
-    bad_err = _max_err(bad_served[rows], bad_tf[rows])
-    check(not _within(bad_served[rows], bad_tf[rows], **tol),
-          f"{arch}: a planted fault ({fault.__name__}) fails the served-vs-"
-          f"forward check at {tol}: its max err is only {bad_err}")
-    del bad_api, bad_served, bad_tf, held
+    # the same check must fail on each planted fault
+    planted = {fault.__name__: (fault(held), None)}
+    if cfg.family != "ssm":          # RWKV's step reads no index
+        planted["stale_index"] = (held, _stale_index())
+    planted_err = {}
+    for name, (bad_api, graph) in planted.items():
+        bad_toks, bad_served = _serve(bad_api, params, prompts, extras,
+                                      graph=graph)[:2]
+        bad_tf = _teacher_forced(held, params, prompts, bad_toks, extras)
+        planted_err[name] = _max_err(bad_served[rows], bad_tf[rows])
+        check(not _within(bad_served[rows], bad_tf[rows], **tol),
+              f"{arch}: a planted fault ({name}) fails the served-vs-"
+              f"forward check at {tol}: its max err is only "
+              f"{planted_err[name]}")
+        del bad_api, bad_served, bad_tf
+    del planted, held
 
-    decode_ms = statistics.median(ms[1:])
+    decode_ms = statistics.median(ms[2:])      # the replays
+    eager_decode_ms = statistics.median(eager_ms[1:])
     # rewrites the last cache slot
     index = _prefix(cfg) + s_text + SERVE_GEN - 1
-    decode = _device_split(lambda: api.decode_step(params, cache,
-                                                   toks[:, -1:], index))
+    last = toks[:, -1:]
+    graph_split = _device_split(lambda: DecodeGraph.step(runner, last,
+                                                         index))
+    eager_split = _device_split(lambda: api.decode_step(params, eager_cache,
+                                                        last, index))
     prefill = _device_split(lambda: api.prefill(
         params, dict(extras, tokens=prompts),
         cache_len=_prefix(cfg) + s_text + SERVE_GEN))
@@ -1678,25 +1795,44 @@ def phase_serve(phase: str, cfg, kernels, fault, moe=None,
         **{f"{name}_launches": counts[name] for name in sorted(on_path)},
         other_launches=sum(n for name, n in counts.items()
                            if name not in on_path),
+        graph_launches_a_replay=",".join(
+            f"{n}:{c}" for n, c in sorted(per_replay.items())) or "none",
         wall_s=f"{wall:.3f}", tok_s=f"{SERVE_BATCH * SERVE_GEN / wall:.1f}",
+        eager_wall_s=f"{eager_wall:.3f}",
+        eager_tok_s=f"{SERVE_BATCH * SERVE_GEN / eager_wall:.1f}",
         prefill_ms=f"{ms[0]:.3f}",
+        decode_first_step_ms=f"{ms[1]:.3f}",
         decode_step_ms_median=f"{decode_ms:.3f}",
-        decode_step_device_ms=f"{decode['all']:.3f}",
-        decode_idle_share=f"{1 - decode['all'] / decode_ms:.3f}",
-        **{f"decode_{k}_ms": f"{v:.3f}" for k, v in decode.items()
+        decode_eager_ms_median=f"{eager_decode_ms:.3f}",
+        decode_step_device_ms=f"{graph_split['all']:.3f}",
+        decode_idle_share=f"{1 - graph_split['all'] / decode_ms:.3f}",
+        **{f"decode_{k}_ms": f"{v:.3f}" for k, v in graph_split.items()
            if k not in ("all", "warm")},
+        decode_eager_device_ms=f"{eager_split['all']:.3f}",
+        decode_eager_idle_share=(
+            f"{1 - eager_split['all'] / eager_decode_ms:.3f}"),
+        **{f"decode_eager_{k}_ms": f"{v:.3f}"
+           for k, v in eager_split.items() if k not in ("all", "warm")},
         prefill_device_ms=f"{prefill['all']:.3f}",
         **{f"prefill_{k}_ms": f"{v:.3f}" for k, v in prefill.items()
            if k != "all"},
-        peak_gb=f"{peak_gb:.2f}", logits_absmax=f"{logits_absmax:.3g}",
+        peak_gb=f"{peak_gb:.2f}", eager_peak_gb=f"{eager_peak_gb:.2f}",
+        graph_tokens_equal_eager=True,
+        graph_logits_bitwise_eager=graph_bitwise,
+        graph_logits_max_err_vs_eager=f"{graph_err:.3g}",
+        logits_absmax=f"{logits_absmax:.3g}",
         tol_atol=tol["atol"], logits_max_err_vs_forward=f"{err:.3g}",
         argmax_decisive=f"{int(decisive.sum())}/{decisive.numel()}",
         argmax_equal=f"{int(same.sum())}/{same.numel()}", **row_fields,
         **{key: (f"{v:.3g}" if isinstance(v, float) else v)
            for key, v in rerun.items()},
         planted_fault=fault.__name__,
-        planted_max_err_vs_forward=f"{bad_err:.3g}")
-    del params, api, served, cache, extras
+        planted_max_err_vs_forward=f"{planted_err[fault.__name__]:.3g}",
+        # "n/a": the family's step reads no index
+        stale_index_max_err_vs_forward=(
+            f"{planted_err['stale_index']:.3g}" if "stale_index"
+            in planted_err else "n/a"))
+    del params, api, served, runner, eager_cache, extras
     gc.collect()
     torch.cuda.empty_cache()
     return {name: counts[name] for name in on_path}

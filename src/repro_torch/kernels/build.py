@@ -178,24 +178,54 @@ def meta_launch(wrapper) -> None:
     wrapper.meta_launches += 1
 
 
+#: While a CUDA graph is captured inside :func:`capturing`, the launches
+#: the capture records, by wrapper.
+_captured: dict | None = None
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph's capture: yields a dict that :func:`launch`
+    fills with each wrapper's launches recorded by the capture, which
+    runs nothing, so they are not added to ``wrapper.launches``.  The
+    graph's owner adds them there at each replay (``launch.serve.
+    DecodeGraph``)."""
+    global _captured
+    outer, _captured = _captured, {}
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
 def launch(wrapper, name: str, entry: str, argtypes: list,
            device: torch.device, *args) -> None:
     """Call C ``entry`` of kernel ``name`` with ``args`` and the current
     stream of ``device``; raise if it returned a CUDA error
     (``cudaGetLastError()`` right after the launch: a refused launch never
     runs, and a later synchronize would not report it); else add one to
-    ``wrapper.launches``."""
+    ``wrapper.launches``, or, while the stream is captured into a CUDA
+    graph, to the count of :func:`capturing` (a capture outside it
+    raises: its replays would launch kernels that no count sees)."""
     lib = library(name, entry, argtypes)
     with torch.cuda.device(device):
+        captured = torch.cuda.is_current_stream_capturing()
+        if captured and _captured is None:
+            raise RuntimeError(f"{name} launched under a CUDA graph capture "
+                               f"outside build.capturing(): its replays "
+                               f"would not be counted")
         code = getattr(lib, entry)(*args,
                                    torch.cuda.current_stream().cuda_stream)
     if code:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{code} ({msg})")
-    wrapper.launches += 1
+    if captured:
+        _captured[wrapper] = _captured.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
 
 
 __all__ = ["ACCOUNTS", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "accounted",
-           "build", "launch", "library", "log_path", "meta_launch",
-           "refuse_dtensor", "route"]
+           "build", "capturing", "launch", "library", "log_path",
+           "meta_launch", "refuse_dtensor", "route"]

@@ -1,5 +1,7 @@
 """Serving driver: batched prefill + greedy decode with the KV-cache/state
-path, the port of ``repro.launch.serve``.
+path, the port of ``repro.launch.serve``.  Each decode step is replayed
+from a CUDA graph (:class:`DecodeGraph`), as the JAX package runs it
+under ``jax.jit``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
@@ -19,8 +21,114 @@ import torch
 
 from repro_torch.configs.base import get_arch_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models.model import build_model
-from repro_torch.sharding.spec import values_tree
+from repro_torch.sharding.spec import is_dtensor, values_tree
+from repro_torch.tree import tree_leaves
+
+
+class DecodeGraph:
+    """``api.decode_step`` on ``params`` and a prefill's ``cache``, captured
+    once as a CUDA graph and replayed for every token: the counterpart of
+    the JAX package's ``jax.jit`` of the decode step.
+
+    Static buffers: a (B, 1) int32 token, a 0-d int32 index, the cache
+    (the prefill's own tensors, read and written in place), and for each
+    cache leaf that the step hands back anew (RWKV's states, Mamba's SSM
+    state and conv tail) ``fresh[key]``, its new value, copied into the
+    cache at the start of the next step: until then every tensor a step
+    read keeps what it read.  :meth:`step` loads a token and an index
+    into the buffers and runs the step.
+
+    On a CUDA device the first step runs eagerly on the buffers, on the
+    stream the capture then uses: its kernels build and load at their
+    first launch, and cuBLAS sets up its workspace, outside the capture.
+    Then ``api.decode_step`` itself is captured (a fault planted in the
+    api's step is captured with it), and every later step is a replay.
+    The kernel launches the capture records (``build.capturing``) are
+    added to their wrappers' counts at each replay, so the counts are the
+    eager loop's.  A capture that fails raises: nothing falls back to an
+    eager loop.  On the CPU, where no graph exists, every step runs the
+    same function on the same buffers eagerly.  Parameters or a cache on
+    a mesh (DTensors) are refused with ``TypeError``: mesh decode runs
+    eagerly (``launch.steps.build_decode_step``).
+
+    The prefill is not captured: a graph of a call made once a
+    ``generate`` would be replayed never."""
+
+    def __init__(self, api, params, cache, batch: int):
+        for name, tree in (("params", params), ("cache", cache)):
+            for leaf in tree_leaves(tree):
+                if is_dtensor(leaf):
+                    raise TypeError(
+                        f"DecodeGraph captures plain tensors; the {name} "
+                        f"hold a DTensor {tuple(leaf.shape)} placed "
+                        f"{tuple(leaf.placements)} (decode on a mesh runs "
+                        f"eagerly)")
+        self.device = tree_leaves(cache)[0].device
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no decode graph for device {self.device}")
+        self.api, self.params, self.cache = api, params, cache
+        self.token = torch.zeros((batch, 1), dtype=torch.int32,
+                                 device=self.device)
+        self.index = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.fresh = {}
+        self.logits = None           # the graph's output buffer
+        self.graph = None
+        self.per_replay = {}         # wrapper -> its launches a replay
+
+    def _load(self, token, index) -> None:
+        self.token.copy_(token)
+        if isinstance(index, torch.Tensor):
+            self.index.copy_(index)
+        else:
+            self.index.fill_(index)
+
+    def _body(self):
+        """One decode step on the buffers: the last step's new leaves into
+        the cache, the step, its new leaves into ``fresh``."""
+        for key, new in self.fresh.items():
+            self.cache[key].copy_(new)
+        logits, cache = self.api.decode_step(self.params, self.cache,
+                                             self.token, self.index)
+        for key, leaf in cache.items():
+            if leaf is self.cache[key]:
+                continue
+            if key in self.fresh:
+                self.fresh[key].copy_(leaf)
+            else:
+                self.fresh[key] = leaf
+        return logits
+
+    def step(self, token, index):
+        """The logits (B, 1, V) of ``token`` (B, 1) at position ``index``
+        (an int or a 0-d int32 tensor).  After a replay they are the
+        graph's output buffer, which the next step overwrites."""
+        self._load(token, index)
+        if self.device.type == "cpu":
+            return self._body()
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        for wrapper, n in self.per_replay.items():
+            wrapper.launches += n
+        return self.logits
+
+    def _capture(self):
+        """The first step, eagerly, then the capture (which runs nothing);
+        returns the first step's logits."""
+        main = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            logits = self._body()
+        graph = torch.cuda.CUDAGraph()
+        with build.capturing() as launched, torch.cuda.graph(graph,
+                                                             stream=stream):
+            self.logits = self._body()
+        main.wait_stream(stream)
+        self.graph, self.per_replay = graph, launched
+        return logits
 
 
 def generate(api, params, prompts, *, gen: int, extra_inputs=None):
@@ -28,7 +136,11 @@ def generate(api, params, prompts, *, gen: int, extra_inputs=None):
 
     prompts: (B, S) int on the params' device; ``extra_inputs`` go into the
     prefill's batch (vlm ``patches`` (B, P, D), encdec ``frames``).
-    Returns (B, gen) int32.
+    Returns (B, gen) int32.  The prefill runs eagerly; each decode step is
+    a :class:`DecodeGraph` step (a CUDA graph's replay on the card, the
+    same step run eagerly on the CPU), and the argmax of its logits is
+    taken outside the graph, as the JAX package's loop takes it outside
+    its jitted step.
 
     A vlm sequence starts with its P patch positions, so its cache covers
     P + S + gen positions and step i decodes at P + S + i.  The JAX
@@ -43,11 +155,12 @@ def generate(api, params, prompts, *, gen: int, extra_inputs=None):
         logits, cache = api.prefill(params,
                                     dict(extra_inputs or {}, tokens=prompts),
                                     cache_len=s + gen)
+        decode = DecodeGraph(api, params, cache, prompts.shape[0])
         out = []
         tok = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
         for i in range(gen):
             out.append(tok[:, 0])
-            logits, cache = api.decode_step(params, cache, tok, s + i)
+            logits = decode.step(tok, s + i)
             tok = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
         return torch.stack(out, dim=1)
 

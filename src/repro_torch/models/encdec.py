@@ -189,22 +189,22 @@ def prefill(params, cfg, tokens, *, frames, dtype=torch.bfloat16,
     return logits, cache
 
 
-def decode_step(params, cfg, cache, token, index: int, *,
-                dtype=torch.bfloat16, window=None):
-    """token: (B, 1) int; index: the token's absolute position (an int).
+def decode_step(params, cfg, cache, token, index, *, dtype=torch.bfloat16,
+                window=None):
+    """token: (B, 1) int; index: the token's absolute position, a host int
+    or a 0-d int32 tensor on the params' device (``layers.decode_index``).
     Its sinusoid is the table's row ``min(index, max_seq_len - 1)``, as
-    the JAX package's, computed alone.
+    the JAX package's, computed alone and clamped on the device.
 
     Returns (logits (B,1,V), cache): the self-attention cache is updated
     in place, the cross K/V are read."""
     x = L.embed_tokens(params["embed"], cfg, token, dtype)
+    index = L.decode_index(index, cache["k"])
     x = x + L.sinusoidal_position(index, cfg.d_model, cfg.max_seq_len,
                                   device=x.device).to(dtype)[None]
-    positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
         x, _, _ = _dec_block(
-            layer(params["dec_blocks"], i), cfg, x, None,
-            positions=positions,
+            layer(params["dec_blocks"], i), cfg, x, None, positions=None,
             cache=(cache["k"][i], cache["v"][i], cache["pos"][i]),
             cross_cache=(cache["cross_k"][i], cache["cross_v"][i]),
             cache_index=index)

@@ -213,20 +213,22 @@ def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
     return logits, cache
 
 
-def decode_step(params, cfg, cache, token, index: int, *,
-                dtype=torch.bfloat16, window=None):
-    """token: (B, 1) int; index: the token's absolute position (an int).
+def decode_step(params, cfg, cache, token, index, *, dtype=torch.bfloat16,
+                window=None):
+    """token: (B, 1) int; index: the token's absolute position, a host int
+    or a 0-d int32 tensor on the params' device (``layers.decode_index``),
+    read by the attention layers with tensor ops alone.
 
     Returns (logits (B,1,V), cache): the KV ring is updated in place, the
     SSM states and conv tails are new tensors (the ones read stay as they
-    were)."""
+    were; ``launch.serve.DecodeGraph`` copies them back)."""
     window = cfg.sliding_window if window is None else window
     x = L.embed_tokens(params["embed"], cfg, token, dtype)
-    positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    index = L.decode_index(index, cache["k"])
     ssm, conv = [], []
     for p in range(_counts(cfg)[0]):
         x, _, _, (s_p, c_p) = _apply_period(
-            layer(params["periods"], p), cfg, x, positions=positions,
+            layer(params["periods"], p), cfg, x, positions=None,
             mode="decode", window=window,
             attn_cache=(cache["k"][p], cache["v"][p], cache["pos"][p]),
             cache_index=index,

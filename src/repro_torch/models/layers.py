@@ -137,12 +137,39 @@ def sinusoidal_positions(seq_len: int, d_model: int, device=None):
     return _sinusoids(torch.arange(seq_len, device=device), d_model)
 
 
-def sinusoidal_position(index: int, d_model: int, max_len: int, device=None):
+def sinusoidal_position(index, d_model: int, max_len: int, device=None):
     """Row ``min(index, max_len - 1)`` of ``sinusoidal_positions(max_len,
     d_model)`` as (1, D), computed alone with the table's products (the
-    decode step's position, without the whole table)."""
+    decode step's position, without the whole table).  ``index`` is a
+    host int (the row is filled on ``device``) or a 0-d integer tensor,
+    clamped on its own device with no read to the host (a decode step's
+    index under a CUDA graph, :func:`decode_index`)."""
+    if isinstance(index, torch.Tensor):
+        return _sinusoids(index.clamp(max=max_len - 1).reshape(1), d_model)
     row = torch.full((1,), min(index, max_len - 1), device=device)
     return _sinusoids(row, d_model)
+
+
+def decode_index(index, like):
+    """A decode step's ``index`` as the attention and the sinusoids take
+    it: a 0-d int32 tensor on ``like``'s device, as the JAX package's
+    step takes a traced ``jnp.int32`` under ``jax.jit``.  A host int is
+    filled into a new one (a fill, no upload); a tensor, which must be
+    0-d and int32 on that device, is used as it is, so a CUDA graph that
+    captured the step reads whatever its index buffer holds at each
+    replay.  Beside a DTensor ``like`` (a cache on a mesh, whose decode
+    runs eagerly) a host int stays an int: the sharded cache writes take
+    host rows (:func:`write_rows`)."""
+    if isinstance(index, torch.Tensor):
+        if (index.dim() or index.dtype != torch.int32
+                or index.device != like.device):
+            raise ValueError(
+                f"a decode index tensor must be 0-d int32 on {like.device}, "
+                f"got {tuple(index.shape)} {index.dtype} on {index.device}")
+        return index
+    if is_dtensor(like):
+        return int(index)
+    return torch.full((), index, dtype=torch.int32, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +342,19 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
         returned (k, v) are the cross K/V a decode step reads.
       * self-attention decode: ``cache = (k, v, kv_pos)`` with k/v
         (B, S_cache, Kv, hd) and kv_pos (S_cache,) absolute positions
-        (-1 = empty slot); x is (B, 1, D) and ``cache_index`` (an int) the
-        new token's absolute position.  RoPE is applied *before* caching
-        so a ring buffer (sliding window) stays correct.  The new k, v and
-        position are written into the cache tensors in place (the JAX
-        package returns updated copies); the same tensors are returned.
+        (-1 = empty slot); x is (B, 1, D) and ``cache_index`` the new
+        token's absolute position, a 0-d int32 tensor on x's device
+        (:func:`decode_index`; a host int is filled into one).  Every use
+        of it is a tensor op, with nothing read back to the host: the
+        RoPE angle, the cache slot (``remainder`` for a window, ``clamp``
+        otherwise), the k, v and position writes (``index_copy_`` at the
+        slot) and the visibility mask; so a CUDA graph of the step
+        replays at any index.  RoPE is applied *before* caching so a ring
+        buffer (sliding window) stays correct.  The new k, v and position
+        are written into the cache tensors in place (the JAX package
+        returns updated copies); the same tensors are returned.  A cache
+        on a mesh (DTensor) takes a host int: each rank writes the rows
+        of its own shard (:func:`write_rows`), eagerly.
       * cross-attention decode: ``cache = (k, v)``, the encoder's K/V of
         the prefill, read and returned unchanged.
     """
@@ -341,27 +376,30 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     if cache is not None:
         ck, cv, kv_pos = cache
         s_cache = ck.shape[1]
+        if is_dtensor(ck):             # each rank writes its own shard
+            i = int(cache_index)
+            pos1 = torch.full((1,), i, dtype=torch.int32, device=x.device)
+            slot = i % s_cache if window else min(i, s_cache - 1)
+        else:
+            i = decode_index(cache_index, ck)
+            pos1 = i.reshape(1)
+            slot = (torch.remainder(i, s_cache) if window
+                    else i.clamp(max=s_cache - 1)).reshape(1).long()
         if use_rope:
-            pos1 = torch.full((1,), cache_index, dtype=torch.int32,
-                              device=x.device)
             cos, sin = rope_cos_sin(pos1, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-        slot = (cache_index % s_cache if window
-                else min(cache_index, s_cache - 1))
-        if is_dtensor(ck):             # each rank writes its own shard
+        if is_dtensor(ck):
             write_rows(ck, 1, slot, k)
             write_rows(cv, 1, slot, v)
-            write_rows(kv_pos, 0, slot, torch.tensor([cache_index],
-                                                   dtype=kv_pos.dtype,
-                                                   device=kv_pos.device))
-        else:        # no index tensor to upload: decode is host-bound
-            ck[:, slot] = k[:, 0].to(ck.dtype)
-            cv[:, slot] = v[:, 0].to(cv.dtype)
-            kv_pos[slot] = cache_index
-        m = (kv_pos >= 0) & (kv_pos <= cache_index)
+            write_rows(kv_pos, 0, slot, pos1.to(kv_pos.dtype))
+        else:
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
+            kv_pos.index_copy_(0, slot, pos1.to(kv_pos.dtype))
+        m = (kv_pos >= 0) & (kv_pos <= i)
         if window:
-            m = m & (kv_pos > cache_index - window)
+            m = m & (kv_pos > i - window)
         out = _attend_grouped(q, ck.to(q.dtype), cv.to(q.dtype),
                               m[None, :].expand(q.shape[1], -1), scale)
         y = _out_proj(p, out, x.dtype)

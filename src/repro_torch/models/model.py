@@ -9,6 +9,7 @@ The port of ``repro.models.model``.  ``build_model(cfg)`` returns a
   head_logits(params, features)   -> logits
   prefill(params, batch)       -> (logits, cache)
   decode_step(params, cache, token, index) -> (logits, cache)
+                               [index: a host int or a 0-d int32 tensor]
   init_cache(batch, cache_len) -> cache tree
   batch_spec(shape)            -> {name: (shape, dtype)} of the inputs
 

@@ -303,6 +303,13 @@ def prefill(params, cfg, tokens, *, dtype=torch.bfloat16, window=None,
 
 def decode_step(params, cfg, cache, token, index, *, dtype=torch.bfloat16,
                 window=None):
+    """token: (B, 1) int; index: the token's absolute position (a host int
+    or a 0-d int32 tensor), unread: the recurrent state carries the
+    position, as in the JAX package.
+
+    Returns (logits (B,1,V), the blocks' new states): new tensors, the
+    ones read stay as they were (``launch.serve.DecodeGraph`` copies them
+    back)."""
     x = _embed(params, cfg, token, dtype)
     x, cache = _run(params, cfg, x,
                     lambda i: {key: v[i] for key, v in cache.items()})

@@ -211,18 +211,21 @@ def prefill(params, cfg, tokens, *, patches=None, dtype=torch.bfloat16,
     return logits, cache
 
 
-def decode_step(params, cfg, cache, token, index: int, *,
-                dtype=torch.bfloat16, window=None):
-    """token: (B, 1) int; index: the token's absolute position (an int;
-    for vlm it counts the P patch positions).
+def decode_step(params, cfg, cache, token, index, *, dtype=torch.bfloat16,
+                window=None):
+    """token: (B, 1) int; index: the token's absolute position (for vlm it
+    counts the P patch positions), a host int or a 0-d int32 tensor on the
+    params' device (``layers.decode_index``: an int is filled into one).
+    No use of it reads back to the host, so the step can be captured in a
+    CUDA graph and replayed at any index.
 
     Returns (logits (B,1,V), cache): the cache is updated in place."""
     window = cfg.sliding_window if window is None else window
     x = L.embed_tokens(params["embed"], cfg, token, dtype)
-    positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    index = L.decode_index(index, cache["k"])
     for i in range(cfg.num_layers):
         x, _, _ = _apply_block(
-            layer(params["blocks"], i), cfg, x, positions=positions,
+            layer(params["blocks"], i), cfg, x, positions=None,
             window=window,
             cache=(cache["k"][i], cache["v"][i], cache["pos"][i]),
             cache_index=index)

@@ -35,7 +35,7 @@ What is held:
   planted fault (the sum over ``model`` left out) must fail.
 * ``FusedServerStep(mesh=)`` over 2 and 4 ranks bitwise equal to one
   rank, with n not a multiple of ranks x the row pitch.
-* every kernel wrapper refuses a DTensor.
+* every kernel wrapper, and the decode graph runner, refuses a DTensor.
 * the embedding lookup and the cross-entropy, whole and vocab-chunked,
   keep the vocab sharded on a 2x2 mesh under ``fsdp_tp`` (half the vocab
   a rank), within 1e-5 of the plain ones forward and backward; their planted fault (the lookup's sum
@@ -302,6 +302,7 @@ def world_2x2(tmp_path_factory):
     jobs = (_train_jobs() + _serve_jobs()
             + [_moe_job(n) for n in MOE_CASES if MOE_CASES[n][0] == (2, 2)]
             + [_server_job(4), dict(kind="refusals", mesh=(2, 2)),
+               dict(kind="decode_graph", mesh=(2, 2)),
                _vocab_job(False), _vocab_job(True)])
     res = run_world(tmp_path_factory.mktemp("w4"), 4, jobs, timeout=420)
     return {_job_key(j): r for j, r in zip(jobs, res)}
@@ -669,6 +670,16 @@ def test_every_kernel_wrapper_refuses_a_dtensor(world_2x2):
     for name, msg in got.items():
         assert msg and "DTensor" in msg and "local shard" in msg, (name,
                                                                    msg)
+
+
+def test_the_decode_graph_refuses_a_dtensor(world_2x2):
+    """``launch.serve.DecodeGraph`` captures plain tensors: DTensor
+    parameters or a DTensor cache are refused (mesh decode runs
+    eagerly)."""
+    got = world_2x2[("decode_graph",)]
+    assert set(got) == {"params", "cache"}
+    for name, msg in got.items():
+        assert msg and "DTensor" in msg and name in msg, (name, msg)
 
 
 # --- 6. the vocab-parallel embedding and loss ---------------------------------

@@ -305,9 +305,30 @@ def _refusals(job):
     return out
 
 
+def _decode_graph(job):
+    """``launch.serve.DecodeGraph`` given DTensor parameters, then a
+    DTensor cache: the message of the ``TypeError`` each raises (None
+    where one did not)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.serve import DecodeGraph
+    mesh = job["mesh_obj"]
+    d = distribute_tensor(torch.zeros(4, 8), mesh,
+                          [Replicate()] * mesh.ndim, src_data_rank=None)
+    plain = {"w": torch.zeros(4, 8)}
+    out = {}
+    for name, params, cache in (("params", {"w": d}, plain),
+                                ("cache", plain, {"k": d})):
+        try:
+            DecodeGraph(None, params, cache, 1)
+            out[name] = None
+        except TypeError as e:
+            out[name] = str(e)
+    return out
+
+
 JOBS = {"train": _train, "serve": _serve, "moe": _moe,
         "server_step": _server_step, "refusals": _refusals,
-        "vocab": _vocab}
+        "vocab": _vocab, "decode_graph": _decode_graph}
 
 
 def main(rank: int, world: int, store: str, jobs: str, out: str) -> None:
