@@ -45,7 +45,17 @@ Phases, one line each:
      into a new pageable buffer, and the contiguous ``torch.stack`` it
      replaced;
   5. the quickstart path: the FIG2 CNN trained in-process with
-     ``adagrad(use_kernel=True)``, one K2 launch a step for all 8 leaves;
+     ``adagrad(use_kernel=True)``, one K2 launch a step for all 8 leaves:
+     its step (``cnn.train_step``: loss, gradients and update) through a
+     ``launch.graphs.StepGraph``, the first step eager and every later
+     one a replay of one CUDA graph with K2 inside it (counted a replay);
+     held to an eager loop of the same step on the same batches (bit for
+     bit where the eager step is bit for bit against itself run to run,
+     measured first by running it twice from one state (``_eager_twice``);
+     else within the f32 model bar), and a runner that never refreshes
+     its batch buffer must fail that check; captured and eager ms a step,
+     each one's traced device ms and idle share, peaks, and the capture's
+     and instantiation's seconds;
   6. serving qwen3-4b at full width and depth (f32, random weights from a
      seed): ``generate`` with batch 4, prompt 512, 16 new tokens, one K3
      launch per layer of the prefill, each decode step a replay of one
@@ -76,22 +86,29 @@ Phases, one line each:
      the prefill hands over;
   9. training qwen1.5-0.5b at every published width and depth (untied for
      the split strategies, f32, random weights from a seed) through
-     ``repro_torch.launch.train.train_loop`` at lr 3 (``TRAIN_LR``):
+     ``repro_torch.launch.train.train_loop`` at lr 3 (``TRAIN_LR``), whose
+     step runs through a ``StepGraph`` as in phase 5 (every training run
+     of phases 9 and 13 but 13c's one-step checks does):
      a. 20 ``split_concurrent`` steps at batch 8, sequence 512, with K2
-     launched twice a step (the backbone's tree and the head's), its first
-     and last launch re-run through the plain version bitwise, the step-0
-     head and K = 4 stale-head rules held bitwise, the loss falling, and no
-     call of K3, K4 or K5; b. one ``dp_full`` and one ``split_sequential``
-     step from the same weights and batch, equal within 1e-6, then each
-     timed over 6 steps; c. 3 ``split_concurrent`` steps at every width
-     with depth cut to 2, on the card and on the host CPU from the same
-     weights, every loss and state leaf within atol 2e-4 / rtol 1e-3 and
-     every update and accumulator within 1e-3 of its scale, and a planted
-     fault (the head trained on the current step's features) that must fail
-     that check; d. step times, tokens/s, peak memory, and one traced step
-     split into matrix products, K2 and the rest, for the clients' half
-     and the server's (split at a mark kernel launched where the server's
-     half starts);
+     launched twice a step (the backbone's tree and the head's), both
+     inside the graph, its first and last launch re-run through the plain
+     version bitwise, the step-0 head and K = 4 stale-head rules held
+     bitwise, the loss falling, and no call of K3, K4 or K5; the run held
+     to an eager loop of the same step from the same init on the same
+     batches as in phase 5, and two planted graph faults (a stale batch
+     buffer; the refresh decided on the host, so frozen at the captured
+     step) that must each fail that check over 5 steps; b. one
+     ``dp_full`` and one ``split_sequential`` step from the same weights
+     and batch, equal within 1e-6, then each timed over 6 steps; c. 3
+     ``split_concurrent`` steps at every width with depth cut to 2, on the
+     card and on the host CPU from the same weights, every loss and state
+     leaf within atol 2e-4 / rtol 1e-3 and every update and accumulator
+     within 1e-3 of its scale, and a planted fault (the head trained on
+     the current step's features) that must fail that check; d. step
+     times captured and eager, tokens/s, peak memory, a traced replay, and
+     one traced eager step split into matrix products, K2 and the rest,
+     for the clients' half and the server's (split at a mark kernel
+     launched where the server's half starts);
  10. serving qwen3-moe-30b-a3b at every published width (128 experts, top
      8), cut to 24 of 48 layers (``MOE_CUT``), as phase 6 with the MoE's
      dropped assignments counted as in phase 8; if drops touch every batch
@@ -121,16 +138,24 @@ Phases, one line each:
      state reset at the chunk boundary); b. each at every published width
      (``ZOO_FULL``: qwen3-moe-30b-a3b and internvl2-26b cut to 4 layers,
      whisper-small and rwkv6-1.6b whole, the Jamba cut with both FFNs
-     dense), batch 4, one family at a time: the loss's mean over the last
-     3 steps below the first 3's, K2's launches as
-     ``adagrad_update_leaves`` makes them (one a tree a step) with the
-     first and last re-run bitwise, no call of K3, K4 or K5, the step's
-     ms, tokens/s and peak memory, and one step traced (CUDA activity
-     only) and split into matrix products, K2 and the rest; c. qwen1.5-0.5b
-     at bf16 through ``train_loop`` as 9a (20 steps, K2 twice a step, the
-     loss falling, params and accumulators f32), then one bf16 ``dp_full``
-     step of the dense, ssm and encdec smoke configs on the card against
-     the host CPU within the CPU tests' bf16 training bars;
+     dense), batch 4, one family at a time, captured: the loss's mean
+     over the last 3 steps below the first 3's, K2's launches as
+     ``adagrad_update_leaves`` makes them (one a tree a step, inside the
+     graph) with the first and last re-run bitwise, no call of K3, K4 or
+     K5, the step's ms, tokens/s and peaks, and one replay traced (CUDA
+     activity only) and split into matrix products, K2 and the rest; the
+     eager step run twice from one state first (bit for bit or not: the
+     bar of the check; its ms, peaks and trace beside the captured ones),
+     then the first 5 steps held to an eager loop of the same step (states
+     compared by digest where the bar is bit for bit), and the two planted
+     graph faults of 9a over 5 steps, each of which must fail (rwkv6-1.6b's
+     comparison and faults at 2 of its 24 layers, ``GRAPH_CMP_CUT``, its
+     eager ms and peaks its runner's first call); c. qwen1.5-0.5b at bf16
+     through ``train_loop`` as 9a (20 steps, K2 twice a step inside the
+     graph, held to its eager loop, the planted faults, the loss falling,
+     params and accumulators f32), then one bf16 ``dp_full`` step of the
+     dense, ssm and encdec smoke configs on the card against the host CPU
+     within the CPU tests' bf16 training bars;
  14. the sharded paths on a 1x1 NCCL mesh: a. phase 9's step through
      ``train_loop(mesh=)`` against the unsharded run; b. the FIG4 server
      step row-sharded, bitwise; c. the qwen3-moe cut at 4 layers served
@@ -198,11 +223,13 @@ from repro_torch.kernels.rwkv6.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.server_step.ops import server_step_update  # noqa: E402
 from repro_torch.kernels.server_step.ops import work as k1_work  # noqa: E402
 from repro_torch.kernels.server_step.ref import server_step_ref  # noqa: E402
+from repro_torch.launch import graphs  # noqa: E402
+from repro_torch.launch.graphs import StepGraph  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     cnn, hybrid, layers, mamba, rwkv, transformer)
 from repro_torch.models.moe import dispatch_load  # noqa: E402
 from repro_torch.train_fabric import server_step as step_mod  # noqa: E402
-from repro_torch.tree import tree_flatten, tree_leaves  # noqa: E402
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 (non-tensor-core)
 #: flop/s and TF32 tensor-core flop/s; the bound of a kernel is the larger
@@ -1243,7 +1270,241 @@ def phase_fabric() -> int:
 # --- 5. the quickstart path ----------------------------------------------------
 
 
+# --- captured training steps against their eager loops ---------------------
+
+#: 13b holds each row's captured steps to an eager loop of the same step
+#: over its first GRAPH_CMP_STEPS batches (step 0's zero head gradient,
+#: the K = 4 refresh after step 3, a step through the refreshed head),
+#: and runs each planted graph fault over as many
+GRAPH_CMP_STEPS = 5
+#: 13b rows whose comparison and planted faults run at a depth cut: at
+#: every width and depth rwkv6-1.6b's eager step takes 18-31 s and its
+#: capture 51-66 s (465k kernels; PERF.md), which a run held to 1200 s
+#: cannot hold five times over.  Such a row's eager ms and peaks
+#: are its runner's first call (an eager step), its eager idle share
+#: against the replay's device ms (the same kernels)
+GRAPH_CMP_CUT = {"rwkv6-1.6b": dict(num_layers=2)}
+
+
+def _moved(tree, device):
+    """``tree`` (a ``TrainState`` too) with every tensor leaf copied to
+    ``device``."""
+    as_tree = graphs._as_tree(tree)
+    leaves, tdef = tree_flatten(as_tree)
+    out = tdef.unflatten([x.to(device, copy=True)
+                          if isinstance(x, torch.Tensor) else x
+                          for x in leaves])
+    return dataclasses.replace(tree, **out) if as_tree is not tree else out
+
+
+def _host(tree) -> list:
+    """Every tensor leaf of ``tree`` copied to the host."""
+    return [x.to("cpu", copy=True) for x in graphs._leaves(tree)
+            if isinstance(x, torch.Tensor)]
+
+
+def _digest(tree) -> torch.Tensor:
+    """One int64 a tensor leaf of ``tree``: the sum of its elements' bit
+    patterns, so two runs' states compare bit for bit without a copy."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.stack([
+        x.detach().contiguous().view(ints[x.element_size()]).long().sum()
+        for x in graphs._leaves(tree)
+        if isinstance(x, torch.Tensor) and x.numel()]).cpu()
+
+
+def _gap(got: list, want: list, bar: dict) -> tuple:
+    """(every tensor of ``got`` within ``bar`` of the one of ``want`` at
+    its place, bit for bit when ``bar`` is ``BITWISE``; the largest
+    absolute gap)."""
+    ok, gap = len(got) == len(want), 0.0
+    for x, y in zip(got, want):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False, float("inf")
+        ok = ok and (torch.equal(x, y) if bar is BITWISE
+                     else _within(x, y, **bar))
+        gap = max(gap, _max_err(x, y))
+    return ok, gap
+
+
+class _Eager:
+    """A plain loop of ``step``, called as a runner is: ``runner(batch)
+    -> (new state, out)``."""
+
+    def __init__(self, step, state):
+        self.step, self.state = step, state
+
+    def __call__(self, batch):
+        self.state, out = self.step(self.state, batch)
+        return self.state, out
+
+
+class _StaleBatch(StepGraph):
+    """A planted fault: the runner loads its batch buffer once, so every
+    replay trains on the first batch."""
+
+    def _load(self, inputs):
+        if self.inputs is None:
+            super()._load(inputs)
+
+
+def _frozen_refresh(step_fn, k: int):
+    """A planted fault: the stale-head refresh decided on the host from a
+    count of the step's own calls, as a step counter kept on the host
+    decides it.  Eagerly it refreshes when it should; a capture freezes
+    the decision of the captured call (the second: none) into every
+    replay."""
+    calls = [0]
+
+    def step(state, batch):
+        new, metrics = step_fn(state, batch)
+        sync = (calls[0] + 1) % k == 0
+        calls[0] += 1
+        return dataclasses.replace(
+            new, head_stale=tree_map(torch.clone, new.head) if sync
+            else state.head_stale), metrics
+    return step
+
+
+def _run_steps(runner, batches, *, loss=lambda out: out["loss"],
+               keep_at=None, host=False, first=None) -> dict:
+    """``runner`` (a ``StepGraph``, a planted one, or ``_Eager``) over
+    ``batches``, each call timed by ``_synced``: the losses (a host
+    tensor), the seconds of each call, the state after ``keep_at`` calls
+    (its ``_digest``, and with ``host`` its leaves copied to the host),
+    and the peaks (allocated and reserved, GB) of the first call and from
+    call ``TRAIN_WARM`` on.  ``first(new)`` runs after the first call."""
+    losses, secs, kept, digest, out0 = [], [], None, None, {}
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        if i == TRAIN_WARM:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        (new, out), took = _synced(runner, b)
+        secs.append(took)
+        losses.append(loss(out).detach().float().cpu())
+        if i == 0:
+            out0 = {"first_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "first_reserved_gb":
+                        torch.cuda.max_memory_reserved() / 1e9}
+            if first is not None:
+                first(new)
+        if keep_at == i + 1:
+            digest, kept = _digest(new), _host(new) if host else None
+    return {"losses": torch.stack(losses), "secs": secs, "kept": kept,
+            "digest": digest, **out0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def _eager_twice(step, state, batch, *, loss=lambda out: out["loss"]):
+    """The eager step run twice from ``state`` on ``batch``, the second
+    run traced: (the captured-vs-eager bar, measured first: bit for bit
+    where the two runs' new states and losses are, else ``TRAIN_TOL``;
+    the first run's ms; the second's device split (``
+    _traced_device_split``); peaks allocated and reserved, GB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (new, out), took = _synced(step, state, batch)
+    first = torch.cat([_digest(new), _digest([loss(out)])])
+    del new, out
+    runs = []
+    split, _, _ = _traced_device_split(
+        lambda: runs.append(step(state, batch)))
+    new, out = runs.pop()
+    second = torch.cat([_digest(new), _digest([loss(out)])])
+    del new, out
+    return dict(bar=BITWISE if torch.equal(first, second) else TRAIN_TOL,
+                ms=1e3 * took, split=split,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+
+def _held(got: dict, want: dict, bar: dict) -> tuple:
+    """(``got``'s losses and kept state within ``bar`` of ``want``'s (over
+    ``want``'s steps), the largest gap): their host leaves where both runs
+    kept them, else, bit for bit, the losses and the states' digests (the
+    gap then the losses')."""
+    n = len(want["losses"])
+    if got["kept"] is not None and want["kept"] is not None:
+        return _gap([got["losses"][:n], *got["kept"]],
+                    [want["losses"], *want["kept"]], bar)
+    ok, gap = _gap([got["losses"][:n]], [want["losses"]], bar)
+    return (ok and bar is BITWISE
+            and torch.equal(got["digest"], want["digest"])), gap
+
+
+def _graph_held(what: str, step, state0, batches, bar: dict, k: int,
+                captured=None) -> tuple:
+    """The first GRAPH_CMP_STEPS steps of ``step`` from ``state0()`` over
+    ``batches``: captured (``captured``, a ``_run_steps`` result that kept
+    its state at that step, or a run made here) and held at ``bar``
+    (``_held``) to an eager loop of the same step, then the two planted
+    graph faults (``_StaleBatch``; ``_frozen_refresh`` with period ``k``),
+    each of which must fail that check: (the gap, {fault: its gap})."""
+    n = GRAPH_CMP_STEPS
+
+    def run(runner):
+        return _run_steps(runner, batches[:n], keep_at=n,
+                          host=bar is not BITWISE)
+
+    if captured is None:
+        captured = run(StepGraph(step, state0()))
+    eager = run(_Eager(step, state0()))
+    ok, gap = _held(captured, eager, bar)
+    check(ok, f"{what}: {n} captured steps' losses and state at {bar} of "
+          f"the eager loop's: max gap {gap}")
+    planted = {}
+    for name, make in (
+            ("stale_batch", lambda: _StaleBatch(step, state0())),
+            ("frozen_refresh",
+             lambda: StepGraph(_frozen_refresh(step, k), state0()))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        fault_ok, planted[name] = _held(run(make()), eager, bar)
+        check(not fault_ok, f"{what}: the planted graph fault {name} fails "
+              f"the check against the eager loop: gap only "
+              f"{planted[name]}")
+    return gap, planted
+
+
+def _capture_numbers(runner) -> dict:
+    """A ``StepGraph``'s capture and instantiation seconds and launches a
+    replay (numbers alone: the graph and its memory go with the runner)."""
+    return dict(capture_s=runner.capture.capture_s,
+                instantiate_s=runner.capture.instantiate_s,
+                per_replay=dict(runner.per_replay))
+
+
+def _graph_fields(captured: dict, eager: dict, numbers: dict, bar: dict,
+                  gap: float) -> dict:
+    """The say() fields of a captured run (``numbers``:
+    ``_capture_numbers``) beside its eager loop (a ``_run_steps`` or an
+    ``_eager_twice`` result)."""
+    eager_ms = (eager["ms"] if "ms" in eager else 1e3 * statistics.median(
+        eager["secs"][TRAIN_WARM:]))
+    return dict(
+        captured_ms_median=_ms_median(captured["secs"][TRAIN_WARM:]),
+        eager_ms=f"{eager_ms:.3f}",
+        first_step_ms=f"{1e3 * captured['secs'][0]:.3f}",
+        second_step_ms=f"{1e3 * captured['secs'][1]:.3f}",
+        capture_s=f"{numbers['capture_s']:.3f}",
+        instantiate_s=f"{numbers['instantiate_s']:.3f}",
+        peak_gb=f"{captured['peak_gb']:.2f}",
+        reserved_gb=f"{captured['reserved_gb']:.2f}",
+        eager_peak_gb=f"{eager['peak_gb']:.2f}",
+        eager_reserved_gb=f"{eager['reserved_gb']:.2f}",
+        eager_run_to_run="bitwise" if bar is BITWISE else "not_bitwise",
+        graph_vs_eager_bar=("bitwise" if bar is BITWISE else
+                            f"atol={bar['atol']},rtol={bar['rtol']}"),
+        graph_vs_eager_max_gap=f"{gap:.3g}",
+        per_replay=",".join(f"{w.__name__}:{n}" for w, n in
+                            sorted(numbers["per_replay"].items(),
+                                   key=lambda kv: kv[0].__name__)))
+
+
 def phase_quickstart() -> int:
+    """Phase 5 (the module docstring): returns K2's launches on the path."""
     from repro_torch.data import clustered_images
     from repro_torch.optim import adagrad
 
@@ -1251,46 +1512,73 @@ def phase_quickstart() -> int:
     params = cnn.init_cnn(torch.Generator().manual_seed(0), ccfg)
     n_leaves = len(tree_leaves(params))
     opt = adagrad(QUICKSTART_LR, beta=1.0, use_kernel=True)
-    opt_state = opt.init(params)
+    step = cnn.train_step(ccfg, opt)
     images, labels = clustered_images(4096, image_size=ccfg.image_size,
                                       channels=ccfg.in_channels, seed=0)
     test_x, test_y = clustered_images(512, image_size=ccfg.image_size,
                                       channels=ccfg.in_channels, seed=9)
     images = torch.from_numpy(images).cuda()
     labels = torch.from_numpy(labels).cuda()
-    grad_fn = cnn.loss_and_grads(ccfg)
     bs = ccfg.batch_size
+    batches = [(images[j:j + bs], labels[j:j + bs]) for j in (
+        (i * bs) % (len(images) - bs) for i in range(QUICKSTART_STEPS))]
+
+    def state0():
+        return _moved((params, opt.init(params)), "cuda")
+
+    def run(runner_cls):
+        return _run_steps(runner_cls(step, state0()), batches,
+                          loss=lambda out: out, keep_at=QUICKSTART_STEPS,
+                          host=True)
+
     _zero_counts()
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(QUICKSTART_STEPS):
-        j = (i * bs) % (len(images) - bs)
-        loss, grads = grad_fn(params, images[j:j + bs], labels[j:j + bs])
-        params, opt_state = opt.update(grads, opt_state, params)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    per_step_ms = 1e3 * (time.perf_counter() - t0) / QUICKSTART_STEPS
+    runner = StepGraph(step, state0())
+    captured = _run_steps(runner, batches, loss=lambda out: out,
+                          keep_at=QUICKSTART_STEPS, host=True)
     launches = adagrad_update_leaves.launches
-    check(launches == QUICKSTART_STEPS and adagrad_update.launches == 0,
-          f"adagrad launched once a step for the {n_leaves} f32 leaves: "
-          f"{launches} launches of adagrad_update_leaves and "
-          f"{adagrad_update.launches} of adagrad_update in "
-          f"{QUICKSTART_STEPS} steps")
-    losses = [float(x) for x in losses]
+    check(launches == QUICKSTART_STEPS and adagrad_update.launches == 0
+          and runner.per_replay == {adagrad_update_leaves: 1},
+          f"adagrad launched once a step for the {n_leaves} f32 leaves, "
+          f"one in each replay: {launches} launches of "
+          f"adagrad_update_leaves and {adagrad_update.launches} of "
+          f"adagrad_update in {QUICKSTART_STEPS} steps, "
+          f"{runner.per_replay} a replay")
+    with torch.no_grad():
+        err = float(cnn.error_rate(
+            cnn.forward(runner.new[0], ccfg, torch.from_numpy(test_x).cuda()),
+            torch.from_numpy(test_y).cuda()))
+    check(0.0 <= err <= 1.0, f"test error rate in [0, 1]: {err}")
+    graph_split, _, _ = _traced_device_split(lambda: runner(batches[-1]))
+    numbers = _capture_numbers(runner)
+    del runner
+    twice = _eager_twice(step, state0(), batches[0], loss=lambda out: out)
+    bar = twice["bar"]
+    eager = run(_Eager)
+    ok, gap = _held(captured, eager, bar)
+    check(ok, f"quickstart: the captured steps' losses and state equal the "
+          f"eager loop's at {bar}: max gap {gap}")
+    stale_ok, stale_gap = _held(run(_StaleBatch), eager, bar)
+    check(not stale_ok, f"quickstart: a runner that never refreshes its "
+          f"batch buffer departs from the eager loop: gap only {stale_gap}")
+    losses = [float(x) for x in captured["losses"]]
     check(all(np.isfinite(losses)), f"finite losses: {losses}")
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     check(last < first, f"mean loss of the last 5 steps ({last}) below the "
           f"first 5 ({first})")
-    with torch.no_grad():
-        err = float(cnn.error_rate(
-            cnn.forward(params, ccfg, torch.from_numpy(test_x).cuda()),
-            torch.from_numpy(test_y).cuda()))
-    check(0.0 <= err <= 1.0, f"test error rate in [0, 1]: {err}")
+    graph_ms, eager_ms = (statistics.median(r["secs"][TRAIN_WARM:]) * 1e3
+                          for r in (captured, eager))
+    graph_dev, eager_dev = (sum(x.values()) for x in (graph_split,
+                                                      twice["split"]))
     say("5 quickstart", model=ccfg.name, steps=QUICKSTART_STEPS,
         batch=bs, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
         test_error=f"{err:.4f}", leaves=n_leaves, adagrad_launches=launches,
-        step_ms=f"{per_step_ms:.3f}")
+        step_ms=f"{graph_ms:.3f}",
+        **_graph_fields(captured, eager, numbers, bar, gap),
+        captured_device_ms=f"{graph_dev:.3f}",
+        captured_idle_share=f"{1 - graph_dev / graph_ms:.3f}",
+        eager_device_ms=f"{eager_dev:.3f}",
+        eager_idle_share=f"{1 - eager_dev / eager_ms:.3f}",
+        planted_stale_batch_gap=f"{stale_gap:.3g}")
     return launches
 
 
@@ -1338,7 +1626,7 @@ def _plain_flash_attention(q, k, v, *, causal=True, window=0):
 #: marks of cuBLAS's matrix-product kernels, to split a trace's device time
 REPO_KERNELS = ("server_step_kernel", "adagrad_kernel", "flash_kernel",
                 "wkv_kernel", "mamba_scan_kernel")
-MATMUL_MARKS = ("gemm", "gemv", "xmma", "cutlass")
+MATMUL_MARKS = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
 
 
 def _part(kernel: str) -> str:
@@ -1873,7 +2161,7 @@ def _patched(owner, attr: str, wrap):
 
 def _trees_equal(a, b) -> bool:
     la, lb = tree_leaves(a), tree_leaves(b)
-    return len(la) == len(lb) and all(torch.equal(x, y)
+    return len(la) == len(lb) and all(torch.equal(x, y.to(x.device))
                                       for x, y in zip(la, lb))
 
 
@@ -1997,7 +2285,9 @@ def _current_features_fault(api, step_fn):
 
 def _split_concurrent_run(api, run, params, batches, fault=False) -> tuple:
     """``split_concurrent`` steps from ``params`` on their device over
-    ``batches``: (per-step losses, (initial state, final state))."""
+    ``batches``, through a ``StepGraph`` (on the card the first step
+    eager, the rest replays of its graph; on the host CPU every step
+    eager): (per-step losses, (initial state, final state))."""
     from repro_torch.core.split_parallel import (init_prev_features,
                                                  make_train_step)
     from repro_torch.optim import get_optimizer
@@ -2009,12 +2299,13 @@ def _split_concurrent_run(api, run, params, batches, fault=False) -> tuple:
                                  head_sync_period=run.head_sync_period)
     if fault:
         step = _current_features_fault(api, step)
-    state = first = init_prev_features(init(params=params), api, batches[0],
-                                       dtype=torch.float32)
+    first = init_prev_features(init(params=params), api, batches[0],
+                               dtype=torch.float32)
+    runner = StepGraph(step, _moved(first, batches[0]["tokens"].device))
     losses = []
     for b in batches:
-        state, metrics = step(state, b)
-        losses.append(metrics["loss"])
+        state, metrics = runner(b)
+        losses.append(metrics["loss"].clone())
     return torch.stack(losses), (first, state)
 
 
@@ -2060,6 +2351,139 @@ def _update_gap(got, want, *, zero=(), spacing=False) -> tuple:
     return ok, worst
 
 
+def _refresh_frozen_in(make):
+    """``make_train_step`` whose step is ``_frozen_refresh``'s planted
+    fault."""
+    def make_planted(api, opt, **kw):
+        init, step_fn = make(api, opt, **kw)
+        return init, _frozen_refresh(step_fn, kw["head_sync_period"])
+    return make_planted
+
+
+def _held_train_loop(cfg, run, *, steps: int, on_step=None,
+                     recorders=()) -> dict:
+    """``train.train_loop`` of ``cfg`` under ``run`` for ``steps`` steps at
+    batch TRAIN_BATCH, sequence TRAIN_SEQ on the card, its runner (a
+    ``StepGraph``) timed at each call (``on_step(the state the step read
+    (step 0's on the host), new state, i, recorded)`` after it), with the
+    kernels' counts set to 0 just before
+    and read just after, and the ``recorders`` ((module, attr, every)
+    of ``_recording``) open around it; then one more replay traced, an
+    eager loop of the same step from the same init over the same
+    batches, held to the captured run at the measured bar, and the two
+    planted graph faults (a stale batch buffer; the refresh frozen at the
+    captured step), each over GRAPH_CMP_STEPS steps through
+    ``train_loop``, which must fail that check.  Returns the runs'
+    numbers and the eager loop (its final state the eager one)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+
+    seen, secs, fed = {}, [], []
+
+    def noting(make):
+        def make_noted(api, opt, **kw):
+            init, step_fn = make(api, opt, **kw)
+            seen.update(api=api, opt=opt, step=step_fn)
+            return init, step_fn
+        return make_noted
+
+    class Timed(StepGraph):
+        def __init__(self, fn, state, **kw):
+            seen["init"] = _moved(state, "cpu")
+            super().__init__(fn, state, **kw)
+            seen["runner"] = self
+
+        def __call__(self, batch):
+            i = len(secs)
+            if i == TRAIN_WARM:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            (new, metrics), took = _synced(super().__call__, batch)
+            secs.append(took)
+            if on_step is not None:
+                # after the first step the runner's buffers are its new
+                # state; after a later one they still hold what it read
+                on_step(seen["init"] if i == 0 else self.state, new, i,
+                        seen["recorded"])
+            fed.append(batch)
+            return new, metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as stack:
+        seen["recorded"] = [stack.enter_context(_recording(*r))
+                            for r in recorders]
+        stack.enter_context(_patched(steps_mod, "make_train_step", noting))
+        stack.enter_context(_patched(train, "StepGraph", lambda _: Timed))
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses, state = train.train_loop(cfg, run, steps=steps,
+                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        captured = {"secs": secs,
+                    "losses": torch.tensor(losses, dtype=torch.float32),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    runner, recorded = seen.pop("runner"), seen.pop("recorded")
+    got = _host(state)
+    leaves = tree_leaves((state.params, state.head))
+    k2_bound, _ = _k2_bound(leaves, leaves)
+    del state, leaves
+    graph_split, _, n_kernels = _traced_device_split(
+        lambda: StepGraph.__call__(runner, fed[-1]))
+    numbers = _capture_numbers(runner)
+    out = dict(losses=losses, counts=counts, wall=wall, recorded=recorded,
+               batch=fed[-1],
+               api=seen["api"], opt=seen["opt"], step=seen["step"],
+               per_replay=numbers["per_replay"], k2_bound=k2_bound,
+               graph_split=graph_split, graph_kernels=n_kernels)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    init = seen.pop("init")
+    twice = _eager_twice(seen["step"], _moved(init, "cuda"), fed[0])
+    bar = twice["bar"]
+    eager_run = _Eager(seen["step"], _moved(init, "cuda"))
+    del init
+    eager = _run_steps(eager_run, fed, keep_at=GRAPH_CMP_STEPS, host=True)
+    ok, gap = _gap([captured["losses"], *got],
+                   [eager["losses"], *_host(eager_run.state)], bar)
+    del got
+    check(ok, f"train: {cfg.name} ({run.compute_dtype}) through train_loop's "
+          f"graph: every loss and state leaf of {steps} steps at {bar} of "
+          f"an eager loop of the same step: max gap {gap}")
+    planted = {}
+    for name, ctx in (
+            ("stale_batch", _patched(train, "StepGraph",
+                                     lambda _: _StaleBatch)),
+            ("frozen_refresh", _patched(steps_mod, "make_train_step",
+                                        _refresh_frozen_in))):
+        with ctx:
+            f_losses, f_state = train.train_loop(
+                cfg, run, steps=GRAPH_CMP_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, device="cuda")
+        planted[name] = _gap(
+            [torch.tensor(f_losses, dtype=torch.float32), *_host(f_state)],
+            [eager["losses"][:GRAPH_CMP_STEPS], *eager["kept"]], bar)
+        del f_state
+        check(not planted[name][0], f"train: {cfg.name}'s planted graph "
+              f"fault {name} fails the check against the eager loop: max "
+              f"gap only {planted[name][1]}")
+    seen.clear()
+    eager_ms = 1e3 * statistics.median(eager["secs"][TRAIN_WARM:])
+    eager_dev = sum(twice["split"].values())
+    out.update(eager=eager, eager_run=eager_run, captured=captured,
+               fields=dict(_graph_fields(captured, eager, numbers, bar, gap),
+                           eager_device_ms=f"{eager_dev:.3f}",
+                           eager_idle_share=f"{1 - eager_dev / eager_ms:.3f}"),
+               planted={k: v[1] for k, v in planted.items()})
+    return out
+
+
 def phase_train() -> int:
     """Phase 9 (the module docstring): returns K2's launches on the path
     (run a)."""
@@ -2069,11 +2493,9 @@ def phase_train() -> int:
     from repro_torch.core.split_parallel import (make_train_step,
                                                  merge_params, split_params)
     from repro_torch.kernels.adagrad import ops as k2_ops
-    from repro_torch.launch import steps, train
     from repro_torch.models.model import build_model, count_params_analytic
     from repro_torch.optim import get_optimizer
     from repro_torch.sharding.spec import values_tree
-    from repro_torch.tree import tree_map
 
     run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
                     learning_rate=TRAIN_LR, compute_dtype="float32", seed=0)
@@ -2082,69 +2504,49 @@ def phase_train() -> int:
     k = run.head_sync_period
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
-    # a. the main path: train_loop, each step timed and checked
-    seen, step_s, head_moved, stale_moved, stale_is_head = {}, [], [], [], []
+    # a. the main path: train_loop through its graph, each step checked
+    head_moved, stale_moved, stale_is_head, first_leaves = [], [], [], []
 
-    def checking(make):
-        def make_checked(api, opt, **kw):
-            init, step_fn = make(api, opt, **kw)
-            seen.update(api=api, opt=opt, step=step_fn)
+    def checking(before, new, i, recorded):
+        head_moved.append(not _trees_equal(new.head, before.head))
+        stale_moved.append(not _trees_equal(new.head_stale,
+                                            before.head_stale))
+        stale_is_head.append(_trees_equal(new.head_stale, new.head))
+        if i == 0:        # the first launch, checked and let go
+            k2_calls = recorded[0]
+            first_leaves.append(_k2_rerun(k2_calls[0], "first"))
+            k2_calls[0] = None
 
-            def step(state, batch):
-                i = len(step_s)
-                if i == TRAIN_WARM:
-                    torch.cuda.reset_peak_memory_stats()
-                head, stale = state.head, state.head_stale
-                (state, metrics), took = _synced(step_fn, state, batch)
-                step_s.append(took)
-                head_moved.append(not _trees_equal(head, state.head))
-                stale_moved.append(not _trees_equal(stale, state.head_stale))
-                stale_is_head.append(_trees_equal(state.head_stale,
-                                                  state.head))
-                if i == 0:        # the first launch, checked and let go
-                    seen["first_leaves"] = _k2_rerun(k2_calls[0], "first")
-                    k2_calls[0] = None
-                seen["state"], seen["batch"] = state, batch
-                return state, metrics
-            return init, step
-        return make_checked
-
-    with contextlib.ExitStack() as stack:
-        k2_calls = stack.enter_context(_recording(k2_ops, "_update"))
-        stray = [stack.enter_context(_recording(module, attr, every=True))
-                 for module, attr in ((layers, "flash_attention"),
-                                      (rwkv, "wkv"), (mamba, "mamba_scan"))]
-        stack.enter_context(_patched(steps, "make_train_step", checking))
-        gc.collect()
-        torch.cuda.empty_cache()
-        _zero_counts()
-        t0 = time.perf_counter()
-        losses, state = train.train_loop(cfg, run, steps=TRAIN_STEPS,
-                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                         device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in WRAPPERS}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held = _held_train_loop(
+        cfg, run, steps=TRAIN_STEPS, on_step=checking,
+        recorders=[(k2_ops, "_update")] + [
+            (module, attr, True) for module, attr in (
+                (layers, "flash_attention"), (rwkv, "wkv"),
+                (mamba, "mamba_scan"))])
+    k2_calls, *stray = held["recorded"]
     last_leaves = _k2_rerun(k2_calls[-1], "last")
     del k2_calls
+    losses, counts = held["losses"], held["counts"]
     launches = counts["adagrad_update_leaves"]
-    api, opt = seen["api"], seen["opt"]
+    api, opt = held["api"], held["opt"]
     backbone, head = split_params(values_tree(api.init(None)))
     n_leaves = (len(tree_leaves(backbone)), len(tree_leaves(head)))
+    state = held["eager_run"].state
     n_params = sum(x.numel() for x in tree_leaves(
         merge_params(state.params, state.head)))
     check(api.cfg == untied and n_params == count_params_analytic(untied),
           f"train: the untied {TRAIN_ARCH} at every width and depth, "
           f"{n_params} params (analytic: {count_params_analytic(untied)})")
     check(all(n <= MAX_LEAVES for n in n_leaves)
-          and (seen["first_leaves"], last_leaves) == n_leaves,
+          and (first_leaves[0], last_leaves) == n_leaves,
           f"train: backbone and head trees of {n_leaves} f32 leaves, one "
           f"K2 launch each; first and last launches took "
-          f"{seen['first_leaves']} and {last_leaves}")
-    check(launches == 2 * TRAIN_STEPS and counts["adagrad_update"] == 0,
-          f"train: K2 launched twice a step (backbone, head): {launches} "
-          f"launches in {TRAIN_STEPS} steps, {counts}")
+          f"{first_leaves[0]} and {last_leaves}")
+    check(launches == 2 * TRAIN_STEPS and counts["adagrad_update"] == 0
+          and held["per_replay"] == {adagrad_update_leaves: 2},
+          f"train: K2 launched twice a step (backbone, head), both inside "
+          f"the graph: {launches} launches in {TRAIN_STEPS} steps, "
+          f"{counts}, {held['per_replay']} a replay")
     check(not any(stray) and all(
         counts[w.__name__] == 0 for w in (flash_attention, wkv, mamba_scan,
                                           server_step_update)),
@@ -2166,7 +2568,9 @@ def phase_train() -> int:
           f"train: head_stale bitwise equal to the head after steps {syncs} "
           f"and unchanged after the others: moved {stale_moved}, equal to "
           f"head {stale_is_head}")
+    step_s = held["captured"]["secs"]
     step_ms = 1e3 * statistics.median(step_s[TRAIN_WARM:])
+    graph_dev = sum(held["graph_split"].values())
     say("9a train", arch=TRAIN_ARCH, params=n_params, layers=cfg.num_layers,
         d_model=cfg.d_model, vocab=cfg.padded_vocab, untied="yes",
         strategy=run.strategy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -2183,23 +2587,28 @@ def phase_train() -> int:
         step_ms_median=f"{step_ms:.3f}",
         step_ms=",".join(f"{1e3 * x:.3f}" for x in step_s),
         tok_s=f"{tokens / step_ms * 1e3:.1f}",
-        peak_gb_steps_2_on=f"{peak_gb:.2f}", wall_s=f"{wall:.3f}")
+        captured_device_ms=f"{graph_dev:.3f}",
+        captured_idle_share=f"{1 - graph_dev / step_ms:.3f}",
+        **held["fields"],
+        **{f"planted_{k_}_gap": f"{v:.3g}"
+           for k_, v in held["planted"].items()},
+        wall_s=f"{held['wall']:.3f}")
 
     # d. one more step traced, split at a mark where the server's half
     # starts
-    state, batch, step_fn = seen["state"], seen["batch"], seen["step"]
+    # (eager: the mark is a launch of the server's half, in the eager loop
+    # of the same step that run a was held to)
+    batch, step_fn = held["batch"], held["step"]
+    eager_ms = 1e3 * statistics.median(held["eager"]["secs"][TRAIN_WARM:])
     with _patched(split_parallel, "server_head_update", _marked):
         halves, others = _traced_halves(lambda: step_fn(state, batch))
-    k2_bound, _ = _k2_bound(tree_leaves(merge_params(state.params,
-                                                     state.head)),
-                            tree_leaves(merge_params(state.params,
-                                                     state.head)))
-    del state, batch, step_fn, seen
+    k2_bound = held["k2_bound"]
+    del state, batch, step_fn, held
     device_ms = sum(sum(h.values()) for h in halves.values())
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
-    say("9d train trace", strategy="split_concurrent",
-        step_device_ms=f"{device_ms:.3f}",
-        step_idle_share=f"{1 - device_ms / step_ms:.3f}",
+    say("9d train trace", strategy="split_concurrent", route="eager",
+        step_device_ms=f"{device_ms:.3f}", eager_step_ms=f"{eager_ms:.3f}",
+        step_idle_share=f"{1 - device_ms / eager_ms:.3f}",
         **{f"step_{part}_ms": f"{sum(h[part] for h in halves.values()):.3f}"
            for part in halves["client"]},
         **{f"{half}_device_ms": f"{sum(h.values()):.3f}"
@@ -2226,17 +2635,15 @@ def phase_train() -> int:
     after_one, times, peaks = {}, {}, {}
     for strategy in ("dp_full", "split_sequential"):
         init, step = make_train_step(api, opt, strategy=strategy)
-        state, secs = init(params=params), []
-        for i, b in enumerate(batches):
-            if i == TRAIN_WARM:
-                torch.cuda.reset_peak_memory_stats()
-            (state, _), took = _synced(step, state, b)
-            secs.append(took)
-            if i == 0:
-                after_one[strategy] = merge_params(state.params, state.head)
-        times[strategy] = 1e3 * statistics.median(secs[TRAIN_WARM:])
-        peaks[strategy] = torch.cuda.max_memory_allocated() / 1e9
-        del state
+        timed = _run_steps(
+            StepGraph(step, init(params=tree_map(torch.clone, params))),
+            batches, first=lambda new, s=strategy: after_one.__setitem__(
+                s, merge_params(_moved(new.params, "cuda"),
+                                _moved(new.head, "cuda"))))
+        times[strategy] = 1e3 * statistics.median(
+            timed["secs"][TRAIN_WARM:])
+        peaks[strategy] = timed["peak_gb"]
+        del timed
     flat_dp, tdef = tree_flatten(after_one["dp_full"])
     flat_sp = tdef.flatten_up_to(after_one["split_sequential"])
     gap = max(_max_err(a, b) for a, b in zip(flat_dp, flat_sp))
@@ -2583,51 +2990,97 @@ def _zoo_full(arch: str, changes: dict, reduced: str, batch: int, seq: int,
           f"train zoo: {arch} has {n_params} params (analytic: "
           f"{count_params_analytic(cfg)})")
     per_step = _k2_launches_a_step(state.params, state.head)
-    losses, secs = [], []
+    del state
+
+    def state0():
+        gen.manual_seed(run.seed)
+        return init_prev_features(init(params=values_tree(api.init(gen))),
+                                  api, batches[0], dtype=torch.float32)
+
+    def first_launch(_):        # the first launch, checked and let go
+        first_leaves.append(_k2_rerun(k2_calls[0], "first"))
+        k2_calls[0] = None
+
+    # the eager step at the row's config, twice from one state: the bar
+    # of the captured-vs-eager check, the eager step's ms and its trace
+    cut = GRAPH_CMP_CUT.get(arch)
+    twice = None if cut else _eager_twice(step, state0(), batches[0])
+    bar = twice["bar"] if twice else None
+    first_leaves = []
     with contextlib.ExitStack() as stack:
         k2_calls = stack.enter_context(_recording(k2_ops, "_update"))
         stray = [stack.enter_context(_recording(module, attr, every=True))
                  for module, attr in ((layers, "flash_attention"),
                                       (rwkv, "wkv"), (mamba, "mamba_scan"))]
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = state0()
         _zero_counts()
         t0 = time.perf_counter()
-        for i, b in enumerate(batches[:steps]):
-            if i == ZOO_FULL_WARM:
-                torch.cuda.reset_peak_memory_stats()
-            (state, metrics), took = _synced(step, state, b)
-            secs.append(took)
-            losses.append(float(metrics["loss"]))
-            if i == 0:        # the first launch, checked and let go
-                first_leaves = _k2_rerun(k2_calls[0], "first")
-                k2_calls[0] = None
+        runner = StepGraph(step, state)
+        del state
+        captured = _run_steps(runner, batches[:steps], first=first_launch,
+                              keep_at=GRAPH_CMP_STEPS,
+                              host=bar is not BITWISE and not cut)
         wall = time.perf_counter() - t0
         counts = {w.__name__: w.launches for w in WRAPPERS}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     last_leaves = _k2_rerun(k2_calls[-1], "last")
     del k2_calls
     launches = counts["adagrad_update_leaves"]
     backbone, head = split_params(values_tree(api.init(None)))
     n_leaves = (len(tree_leaves(backbone)), len(tree_leaves(head)))
-    check(launches == per_step * steps and counts["adagrad_update"] == 0,
-          f"train zoo: {arch}: K2 launched {per_step} times a step "
-          f"(backbone and head trees of {n_leaves} f32 leaves): {launches} "
-          f"in {steps} steps, {counts}")
-    check((first_leaves, last_leaves) == n_leaves,
+    check(launches == per_step * steps and counts["adagrad_update"] == 0
+          and runner.per_replay == {adagrad_update_leaves: per_step},
+          f"train zoo: {arch}: K2 launched {per_step} times a step, all "
+          f"inside the graph (backbone and head trees of {n_leaves} f32 "
+          f"leaves): {launches} in {steps} steps, {counts}, "
+          f"{runner.per_replay} a replay")
+    check((first_leaves[0], last_leaves) == n_leaves,
           f"train zoo: {arch}: the first and last K2 launches took "
-          f"{first_leaves} and {last_leaves} leaves, the trees {n_leaves}")
+          f"{first_leaves[0]} and {last_leaves} leaves, the trees "
+          f"{n_leaves}")
     check(not any(stray) and all(
         counts[w.__name__] == 0 for w in (flash_attention, wkv, mamba_scan,
                                           server_step_update)),
           f"train zoo: {arch}: no call of K3, K4 or K5: "
           f"{[len(c) for c in stray]} calls, {counts}")
     del stray
+    losses = [float(x) for x in captured["losses"]]
     first3, last3 = np.mean(losses[:3]), np.mean(losses[-3:])
-    step_ms = 1e3 * statistics.median(secs[ZOO_FULL_WARM:])
+    step_ms = 1e3 * statistics.median(captured["secs"][ZOO_FULL_WARM:])
+    leaves = tree_leaves(merge_params(runner.new.params, runner.new.head))
+    k2_bound, _ = _k2_bound(leaves, leaves)
+    del leaves
     b = batches[steps]
-    split, others, n_kernels = _traced_device_split(lambda: step(state, b))
+    split, others, n_kernels = _traced_device_split(lambda: runner(b))
     device_ms = sum(split.values())
-    k2_bound, _ = _k2_bound(*[tree_leaves(merge_params(state.params,
-                                                       state.head))] * 2)
+    numbers = _capture_numbers(runner)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first GRAPH_CMP_STEPS steps held to an eager loop, and the
+    # planted graph faults (at the depth GRAPH_CMP_CUT gives, if any)
+    cmp_cfg, cmp_step, cmp_state0, cmp_bar = cfg, step, state0, bar
+    if cut:      # state0 reads api and init when called: the cut's state
+        del api, opt, init, step
+        cmp_cfg = dataclasses.replace(cfg, **cut)
+        api = build_model(cmp_cfg, compute_dtype=torch.float32,
+                          remat=run.remat)
+        opt = get_optimizer("adagrad", lr, adagrad_beta=run.adagrad_beta,
+                            weight_decay=run.weight_decay, use_kernel=True)
+        init, cmp_step = make_train_step(
+            api, opt, strategy=run.strategy,
+            head_sync_period=run.head_sync_period)
+        cmp_bar = _eager_twice(cmp_step, cmp_state0(), batches[0])["bar"]
+        twice = dict(ms=1e3 * captured["secs"][0],
+                     peak_gb=captured["first_peak_gb"],
+                     reserved_gb=captured["first_reserved_gb"], split=split)
+    eager_dev = sum(twice["split"].values())
+    gap, planted = _graph_held(
+        f"train zoo: {arch} at {cmp_cfg.num_layers} layers", cmp_step,
+        cmp_state0, batches, cmp_bar, run.head_sync_period,
+        None if cut else captured)
     tokens = batch * seq
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     say("13b train zoo", arch=arch, family=cfg.family, params=n_params,
@@ -2643,18 +3096,29 @@ def _zoo_full(arch: str, changes: dict, reduced: str, batch: int, seq: int,
         backbone_leaves=n_leaves[0], head_leaves=n_leaves[1],
         k2_first_last_vs_plain="bitwise", k3_k4_k5_calls=0,
         step_ms_median=f"{step_ms:.3f}",
-        step_ms=",".join(f"{1e3 * x:.3f}" for x in secs),
+        step_ms=",".join(f"{1e3 * x:.3f}" for x in captured["secs"]),
         tok_s=f"{tokens / step_ms * 1e3:.1f}",
-        peak_gb_steps_2_on=f"{peak_gb:.2f}", wall_s=f"{wall:.3f}",
+        eager_tok_s=f"{tokens / twice['ms'] * 1e3:.1f}",
+        wall_s=f"{wall:.3f}",
+        **_graph_fields(captured, twice, numbers, cmp_bar, gap),
+        eager_run_to_run_at_row=("not_measured" if bar is None else
+                                 "bitwise" if bar is BITWISE
+                                 else "not_bitwise"),
+        graph_vs_eager_steps=GRAPH_CMP_STEPS,
+        graph_vs_eager_layers=cmp_cfg.num_layers,
         traced_kernels=n_kernels, step_device_ms=f"{device_ms:.3f}",
         step_idle_share=f"{1 - device_ms / step_ms:.3f}",
+        eager_device_ms=f"{eager_dev:.3f}",
+        eager_device_ms_of="the_replay" if cut else "an_eager_step",
+        eager_idle_share=f"{1 - eager_dev / twice['ms']:.3f}",
         **{f"step_{part}_ms": f"{ms:.3f}" for part, ms in split.items()},
         k2_bound_ms_a_step=f"{k2_bound:.3f}",
+        **{f"planted_{k_}_gap": f"{v:.3g}" for k_, v in planted.items()},
         step_other_top5=";".join(f"{name}:{ms:.3f}" for name, ms in top))
     check(all(np.isfinite(losses)) and last3 < first3,
           f"train zoo: {arch}: finite losses whose mean over the last 3 "
           f"steps ({last3}) is below the first 3's ({first3}): {losses}")
-    del state, batches, b, api, opt, init, step
+    del batches, b, api, opt, init, cmp_step, cmp_state0
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2721,7 +3185,6 @@ def phase_train_zoo() -> int:
     (runs b and c)."""
     from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.launch import steps, train
 
     # a. the card against the host CPU at smoke widths
     for arch in ZOO_FAULTS:
@@ -2736,37 +3199,16 @@ def phase_train_zoo() -> int:
     # host CPU
     run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
                     learning_rate=TRAIN_LR, compute_dtype="bfloat16", seed=0)
-    step_s = []
-
-    def timing(make):
-        def make_timed(api, opt, **kw):
-            init, step_fn = make(api, opt, **kw)
-
-            def step(state, batch):
-                if len(step_s) == TRAIN_WARM:
-                    torch.cuda.reset_peak_memory_stats()
-                out, took = _synced(step_fn, state, batch)
-                step_s.append(took)
-                return out
-            return init, step
-        return make_timed
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    with _patched(steps, "make_train_step", timing):
-        _zero_counts()
-        losses, state = train.train_loop(get_arch_config(TRAIN_ARCH), run,
-                                         steps=TRAIN_STEPS,
-                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                         device="cuda")
-        torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in WRAPPERS}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held = _held_train_loop(get_arch_config(TRAIN_ARCH), run,
+                            steps=TRAIN_STEPS)
+    losses, counts = held["losses"], held["counts"]
+    state = held["eager_run"].state
     bf16_launches = counts["adagrad_update_leaves"]
     check(bf16_launches == 2 * TRAIN_STEPS and sum(counts.values())
-          == bf16_launches,
-          f"train zoo bf16: K2 launched twice a step and no other kernel: "
-          f"{counts}")
+          == bf16_launches and held["per_replay"] == {
+              adagrad_update_leaves: 2},
+          f"train zoo bf16: K2 launched twice a step, inside the graph, and "
+          f"no other kernel: {counts}, {held['per_replay']} a replay")
     check(all(x.dtype == torch.float32 for x in tree_leaves(
         (state.params, state.head, state.opt_state, state.head_opt_state)))
           and state.prev_features.dtype == torch.bfloat16,
@@ -2776,8 +3218,11 @@ def phase_train_zoo() -> int:
     check(all(np.isfinite(losses)) and last5 < first5,
           f"train zoo bf16: mean loss of the last 5 steps ({last5}) below "
           f"the first 5 ({first5}): {losses}")
-    step_ms = 1e3 * statistics.median(step_s[TRAIN_WARM:])
-    del state
+    step_ms = 1e3 * statistics.median(held["captured"]["secs"][TRAIN_WARM:])
+    graph_dev = sum(held["graph_split"].values())
+    fields = held["fields"]
+    planted = held["planted"]
+    del state, held
     gc.collect()
     torch.cuda.empty_cache()
     gaps = {arch: _zoo_bf16_card_vs_cpu(arch) for arch in ZOO_BF16}
@@ -2788,7 +3233,9 @@ def phase_train_zoo() -> int:
         losses=",".join(f"{x:.4f}" for x in losses),
         adagrad_launches=bf16_launches, step_ms_median=f"{step_ms:.3f}",
         tok_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f}",
-        peak_gb_steps_2_on=f"{peak_gb:.2f}",
+        captured_device_ms=f"{graph_dev:.3f}",
+        captured_idle_share=f"{1 - graph_dev / step_ms:.3f}", **fields,
+        **{f"planted_{k}_gap": f"{v:.3g}" for k, v in planted.items()},
         **{f"card_vs_cpu_{arch}_{k}": f"{v:.3g}"
            for arch, g in gaps.items() for k, v in g.items()},
         card_vs_cpu_bars=",".join(f"{k}={v}"

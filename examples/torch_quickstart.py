@@ -6,6 +6,9 @@ save and reload the model in the paper's JSON+base64 format.
 The optimizer is ``adagrad(use_kernel=True)``: on the card every step is
 one launch of the fused AdaGrad kernel (K2) for all eight leaves, and the
 demo prints the launch count; ``--device cpu`` runs its plain version.
+The step (loss, gradients and update, ``cnn.train_step``) runs through a
+``StepGraph``, as the JAX quickstart jits it: on the card the first step
+runs eagerly and every later one replays one CUDA graph, K2 inside it.
 
   PYTHONPATH=src python examples/torch_quickstart.py [--batches 100]
   PYTHONPATH=src python examples/torch_quickstart.py --device cpu
@@ -28,6 +31,7 @@ from repro_torch.configs.paper_cnn import FIG2_CNN  # noqa: E402
 from repro_torch.data import clustered_images  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels.adagrad.ops import adagrad_update_leaves  # noqa: E402
+from repro_torch.launch.graphs import StepGraph  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.optim import adagrad  # noqa: E402
 from repro_torch.tree import to_numpy  # noqa: E402
@@ -56,15 +60,15 @@ def main(argv=None):
                                       channels=ccfg.in_channels, seed=9)
     images, labels = (torch.from_numpy(a).to(dev) for a in (images, labels))
     test_x, test_y = (torch.from_numpy(a).to(dev) for a in (test_x, test_y))
-    grad_fn = cnn.loss_and_grads(ccfg)
+    step = StepGraph(cnn.train_step(ccfg, opt), (params, opt_state))
 
     bs = ccfg.batch_size
     adagrad_update_leaves.launches = 0
     t0 = time.time()
     for i in range(args.batches):
         j = (i * bs) % (len(images) - bs)
-        loss, grads = grad_fn(params, images[j:j + bs], labels[j:j + bs])
-        params, opt_state = opt.update(grads, opt_state, params)
+        (params, opt_state), loss = step((images[j:j + bs],
+                                          labels[j:j + bs]))
         if i % 20 == 0 or i == args.batches - 1:
             with torch.no_grad():
                 err = float(cnn.error_rate(cnn.forward(params, ccfg, test_x),

@@ -7,7 +7,9 @@ Defaults are a ~20M model for 200 steps; pass --d-model 768 --layers 12
 --steps 300 for a ~100M run.  The optimizer runs the fused AdaGrad kernel
 (K2) on the card, one launch for the backbone's tree and one for the
 head's a step under split_concurrent; the demo prints the launch count.
-``--device cpu`` runs its plain version.
+``--device cpu`` runs its plain version.  The step runs through a
+``StepGraph``, as the JAX example jits it: on the card the first step runs
+eagerly and every later one replays one CUDA graph, K2 inside it.
 
   PYTHONPATH=src python examples/torch_train_llm.py --steps 200
   PYTHONPATH=src python examples/torch_train_llm.py --device cpu --steps 20
@@ -30,6 +32,7 @@ from repro_torch.core.split_parallel import (  # noqa: E402
 from repro_torch.data import make_lm_batch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels.adagrad.ops import adagrad_update_leaves  # noqa: E402
+from repro_torch.launch.graphs import StepGraph  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, count_params_analytic)
 from repro_torch.optim import get_optimizer  # noqa: E402
@@ -78,12 +81,13 @@ def main(argv=None):
     if args.strategy in ("split_concurrent", "split_server_sharded"):
         state = init_prev_features(state, api, first, dtype=torch.float32)
 
+    runner = StepGraph(step, state)
     adagrad_update_leaves.launches = 0
     losses = []
     t0 = time.time()
     for i in range(args.steps):
         b = first if i == 0 else batch()
-        state, m = step(state, b)
+        state, m = runner(b)
         losses.append(float(m["loss"]))
         if i % 20 == 0 or i == args.steps - 1:
             dt = time.time() - t0

@@ -22,16 +22,18 @@ strategies, and the baselines it is compared against (port of
 
 The JAX package runs a step under one ``jit``, where XLA may overlap the
 server's head update with the clients' backward pass.  Here a step runs
-eagerly on one stream: the clients' half, then the server's
-(:func:`server_head_update`), in sequence.
+on one stream: the clients' half, then the server's
+(:func:`server_head_update`), in sequence; ``launch.graphs.StepGraph``
+replays it as one CUDA graph on the card.
 
 Gradients come from ``torch.autograd.grad`` over detached copies of the
 leaves that require grad; every optimizer update runs under
 ``torch.no_grad()`` on detached tensors, so no step's graph outlives it.
-``TrainState.step`` is a 0-d int32 tensor on the host: the JAX package
-keeps it on the device, where its jitted step reads it, while here the
-host branches on it each step and a device scalar would make every step
-wait for the card.
+``TrainState.step`` is a 0-d int32 tensor on the params' device, as the
+JAX package keeps it, and the step reads it only through tensor ops: the
+step-0 head rule and the stale-head refresh are ``torch.where`` selects,
+as the JAX step's ``jnp.where``, so no value goes to the host and a
+captured step is right at every step.
 
 Also here: the round drivers' shared client-lifetime ownership,
 throughput-proportional shard sizing, the work-weighted gradient mean and
@@ -141,10 +143,22 @@ def _accum(grad_fn, batch, k: int):
     return tree_map(lambda x: x / k, tot)
 
 
+def _device_of(tree) -> torch.device:
+    leaves = tree_leaves(tree)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def _step_of(state) -> torch.Tensor:
+    """``state.step`` as a 0-d int32 tensor on the params' device (a round
+    checkpoint loads it as a host tensor; a step already there is
+    returned as it is)."""
+    return torch.as_tensor(state.step, dtype=torch.int32,
+                           device=_device_of(state.params))
+
+
 def _new_step(state):
-    """``state.step + 1``, a 0-d int32 host tensor whatever the step came
-    as (a round checkpoint loads it as a host tensor)."""
-    return torch.as_tensor(state.step, dtype=torch.int32).cpu() + 1
+    """``state.step + 1`` on the params' device (JAX ``:272``)."""
+    return _step_of(state) + 1
 
 
 def server_head_update(api: ModelApi, opt: Optimizer, state: TrainState):
@@ -153,16 +167,18 @@ def server_head_update(api: ModelApi, opt: Optimizer, state: TrainState):
     pre-update backbone (``state.params``), then the head's optimizer
     update.  Returns ``(head, head_opt_state)``.
 
-    At step 0 there are no features yet: the gradient is zero, and the
-    update still runs, as in the JAX package (with weight decay > 0 the
-    head moves)."""
-    if int(state.step) > 0:
-        _, _, (g_head,) = _value_and_grad(
-            lambda head: (_head_loss(api, head, state.params,
-                                     state.prev_features, state.prev_labels,
-                                     state.prev_mask), None), state.head)
-    else:
-        g_head = tree_map(torch.zeros_like, state.head)
+    The gradient is computed every step and selected by ``state.step >
+    0`` (JAX ``:247-260``): at step 0 there are no features yet
+    (``init_prev_features``' zeros, mask 0) and the select gives zeros,
+    whatever was computed; the update still runs, as in the JAX package
+    (with weight decay > 0 the head moves)."""
+    _, _, (g_head,) = _value_and_grad(
+        lambda head: (_head_loss(api, head, state.params,
+                                 state.prev_features, state.prev_labels,
+                                 state.prev_mask), None), state.head)
+    have_prev = _step_of(state) > 0
+    g_head = tree_map(lambda g: torch.where(have_prev, g, torch.zeros_like(g)),
+                      g_head)
     with torch.no_grad():
         return opt.update(g_head, state.head_opt_state, state.head)
 
@@ -180,19 +196,25 @@ def make_train_step(api: ModelApi, opt: Optimizer, *, strategy: str,
     splits the global batch into microbatches and accumulates gradients
     (the same math for mean losses; ~k-fold lower activation memory).
 
-    Updates are functional, and the states rely on it: the optimizers
-    return new tensors and nothing writes a state's tensor in place, so
-    after a stale-head refresh (and under ``split_sequential``)
-    ``head_stale`` holds the same tensors as ``head`` until the next
-    update replaces ``head``'s."""
+    ``state.step`` is a 0-d int32 tensor on the params' device.  Updates
+    are functional: the optimizers return new tensors and nothing writes
+    a state's tensor in place, so a step may read the pre-update backbone
+    after its update ran.  A ``split_concurrent`` step hands back a
+    ``head_stale`` of its own (``torch.where`` of the new head and the
+    old stale copy: bitwise the new head after a refresh, the old copy
+    otherwise); ``split_sequential`` hands back its new head as both
+    ``head`` and ``head_stale``, and ``split_concurrent`` the batch's
+    labels and mask as ``prev_labels``/``prev_mask``, so a caller that
+    keeps a step's state in buffers of its own (``launch.graphs.
+    StepGraph``) copies each leaf into its buffer."""
     cfg = api.cfg
 
     def params_of(generator, params):
         return params if params is not None else values_tree(
             api.init(generator))
 
-    def zero_step():
-        return torch.zeros((), dtype=torch.int32)
+    def zero_step(params):
+        return torch.zeros((), dtype=torch.int32, device=_device_of(params))
 
     if strategy in ("dp_full", "fsdp_tp"):
 
@@ -201,7 +223,7 @@ def make_train_step(api: ModelApi, opt: Optimizer, *, strategy: str,
             return TrainState(params=params, head={}, head_stale={},
                               opt_state=opt.init(params), head_opt_state={},
                               prev_features=(), prev_labels=(),
-                              prev_mask=(), step=zero_step())
+                              prev_mask=(), step=zero_step(params))
 
         def step_fn(state: TrainState, batch):
             def grad_fn(mb):
@@ -239,7 +261,7 @@ def make_train_step(api: ModelApi, opt: Optimizer, *, strategy: str,
             params=backbone, head=head, head_stale=stale,
             opt_state=opt.init(backbone), head_opt_state=opt.init(head),
             prev_features=(), prev_labels=(), prev_mask=(),
-            step=zero_step())
+            step=zero_step(params))
 
     if strategy == "split_sequential":
         # He et al.: exact gradients, hard dependency between server and
@@ -302,9 +324,11 @@ def make_train_step(api: ModelApi, opt: Optimizer, *, strategy: str,
         # ---- server: head trains on PREVIOUS step's features -------------
         new_head, new_hopt = server_head_update(api, opt, state)
 
-        # ---- stale-head refresh every K steps ------------------------------
-        do_sync = (int(state.step) + 1) % head_sync_period == 0
-        new_stale = new_head if do_sync else state.head_stale
+        # ---- stale-head refresh every K steps (JAX :265-268) ---------------
+        do_sync = (_step_of(state) + 1) % head_sync_period == 0
+        new_stale = tree_map(
+            lambda fresh, stale: torch.where(do_sync, fresh, stale),
+            new_head, state.head_stale)
 
         return TrainState(
             new_backbone, new_head, new_stale, new_opt, new_hopt,

@@ -21,9 +21,9 @@ import torch
 
 from repro_torch.configs.base import get_arch_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build
+from repro_torch.launch.graphs import Capture, refuse_dtensors
 from repro_torch.models.model import build_model
-from repro_torch.sharding.spec import is_dtensor, values_tree
+from repro_torch.sharding.spec import values_tree
 from repro_torch.tree import tree_leaves
 
 
@@ -44,11 +44,12 @@ class DecodeGraph:
     stream the capture then uses: its kernels build and load at their
     first launch, and cuBLAS sets up its workspace, outside the capture.
     Then ``api.decode_step`` itself is captured (a fault planted in the
-    api's step is captured with it), and every later step is a replay.
-    The kernel launches the capture records (``build.capturing``) are
-    added to their wrappers' counts at each replay, so the counts are the
-    eager loop's.  A capture that fails raises: nothing falls back to an
-    eager loop.  On the CPU, where no graph exists, every step runs the
+    api's step is captured with it), and every later step is a replay
+    (``launch.graphs.Capture``).  The kernel launches the capture records
+    (``build.capturing``) are added to their wrappers' counts at each
+    replay, so the counts are the eager loop's.  A capture that fails
+    raises: nothing falls back to an eager loop.  On the CPU, where no
+    graph exists, every step runs the
     same function on the same buffers eagerly.  Parameters or a cache on
     a mesh (DTensors) are refused with ``TypeError``: mesh decode runs
     eagerly (``launch.steps.build_decode_step``).
@@ -57,14 +58,7 @@ class DecodeGraph:
     ``generate`` would be replayed never."""
 
     def __init__(self, api, params, cache, batch: int):
-        for name, tree in (("params", params), ("cache", cache)):
-            for leaf in tree_leaves(tree):
-                if is_dtensor(leaf):
-                    raise TypeError(
-                        f"DecodeGraph captures plain tensors; the {name} "
-                        f"hold a DTensor {tuple(leaf.shape)} placed "
-                        f"{tuple(leaf.placements)} (decode on a mesh runs "
-                        f"eagerly)")
+        refuse_dtensors("DecodeGraph", params=params, cache=cache)
         self.device = tree_leaves(cache)[0].device
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"no decode graph for device {self.device}")
@@ -74,8 +68,7 @@ class DecodeGraph:
         self.index = torch.zeros((), dtype=torch.int32, device=self.device)
         self.fresh = {}
         self.logits = None           # the graph's output buffer
-        self.graph = None
-        self.per_replay = {}         # wrapper -> its launches a replay
+        self.capture = None          # graphs.Capture, once captured
 
     def _load(self, token, index) -> None:
         self.token.copy_(token)
@@ -107,28 +100,17 @@ class DecodeGraph:
         self._load(token, index)
         if self.device.type == "cpu":
             return self._body()
-        if self.graph is None:
-            return self._capture()
-        self.graph.replay()
-        for wrapper, n in self.per_replay.items():
-            wrapper.launches += n
+        if self.capture is None:
+            self.capture = Capture(self.device)
+            logits, self.logits = self.capture.first(self._body)
+            return logits
+        self.capture.replay()
         return self.logits
 
-    def _capture(self):
-        """The first step, eagerly, then the capture (which runs nothing);
-        returns the first step's logits."""
-        main = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            logits = self._body()
-        graph = torch.cuda.CUDAGraph()
-        with build.capturing() as launched, torch.cuda.graph(graph,
-                                                             stream=stream):
-            self.logits = self._body()
-        main.wait_stream(stream)
-        self.graph, self.per_replay = graph, launched
-        return logits
+    @property
+    def per_replay(self) -> dict:
+        """Each wrapper's kernel launches a replay."""
+        return self.capture.per_replay if self.capture else {}
 
 
 def generate(api, params, prompts, *, gen: int, extra_inputs=None):

@@ -33,6 +33,7 @@ from repro_torch.core.split_parallel import merge_params
 from repro_torch.data import TicketDataLoader, make_lm_batch
 from repro_torch.data.synthetic import InlineWorker
 from repro_torch.device import resolve_device
+from repro_torch.launch.graphs import StepGraph
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.steps import build_train_step, train_parts
 from repro_torch.sharding.spec import is_dtensor
@@ -65,11 +66,18 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     families, whose batches also carry patches or frames, are refused:
     they train through ``make_train_step`` with those in the batch.
 
+    Without a mesh the step runs through a :class:`StepGraph`, the
+    counterpart of the JAX loop's ``jax.jit(step_fn, donate_argnums=(0,))``:
+    on the card the first step runs eagerly and every later one is a
+    replay of one CUDA graph of the step, K2 inside it; on the CPU each
+    step runs eagerly on the runner's buffers.  The state returned is the
+    runner's last new state.
+
     ``mesh`` (a ``DeviceMesh`` on ``device``'s type, e.g.
     ``make_local_mesh``): every rank makes the same init and batches, and
     ``build_train_step`` wraps the same step to place the state and each
-    batch on the mesh by the run's rules; the returned state is of
-    DTensors.
+    batch on the mesh by the run's rules; the step runs eagerly, and the
+    returned state is of DTensors.
     Only rank 0 logs and writes the checkpoint, gathered whole on every
     rank."""
     dev = resolve_device(device)
@@ -103,11 +111,15 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     generator.manual_seed(run.seed)
     first = batch_at(0)
     state = init_all(generator, batch=first)
+    runner = StepGraph(step_fn, state) if mesh is None else None
     losses = []
     t0 = time.time()
     for i in range(steps):
         b = first if i == 0 else batch_at(i)
-        state, metrics = step_fn(state, b)
+        if runner is not None:
+            state, metrics = runner(b)
+        else:
+            state, metrics = step_fn(state, b)
         loss = float(_whole(metrics["loss"]))
         losses.append(loss)
         if (i % log_every == 0 or i == steps - 1) and _rank() == 0:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -24,7 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_as_tensors, tree_flatten, tree_to_numpy
+from repro_torch.launch.graphs import StepGraph
+from repro_torch.tree import (tree_as_tensors, tree_flatten, tree_leaves,
+                              tree_map, tree_to_numpy)
 
 
 def init_cnn(generator: torch.Generator, ccfg: CNNConfig, device="cuda"):
@@ -110,10 +113,10 @@ def error_rate(logits, labels):
 
 
 @functools.lru_cache(maxsize=None)
-def loss_and_grads(ccfg: CNNConfig):
+def value_and_grad(ccfg: CNNConfig):
     """``(params, images, labels) -> (mean NLL, grad tree)`` by
-    ``torch.autograd``, one function per config (the JAX package caches one
-    compiled executable per config the same way)."""
+    ``torch.autograd``, run eagerly: the function :func:`loss_and_grads`
+    captures and :func:`train_step` calls."""
 
     def f(params, images, labels):
         leaves, tdef = tree_flatten(params)
@@ -126,6 +129,59 @@ def loss_and_grads(ccfg: CNNConfig):
         return loss.detach(), tdef.unflatten([g.contiguous() for g in grads])
 
     return f
+
+
+@functools.lru_cache(maxsize=None)
+def loss_and_grads(ccfg: CNNConfig):
+    """``(params, images, labels) -> (mean NLL, grad tree)``, one function
+    per config, as the JAX package caches one jitted function per config.
+
+    Each input shape, dtype and device has its runner of
+    :func:`value_and_grad` (``launch.graphs.StepGraph``), as ``jax.jit``
+    traces once per shape: a call loads the params, images and labels
+    into that runner's buffers and runs it (on the card its first call
+    runs eagerly and captures, and every later one replays the CUDA
+    graph; on the CPU it runs eagerly), and hands back a copy of the loss
+    and gradients.  One lock lets one thread at a time use the runners
+    (the fabric's clients may be threads)."""
+    grad = value_and_grad(ccfg)
+    graphs, lock = {}, threading.Lock()
+
+    def step(_, inputs):
+        return (), grad(*inputs)
+
+    def f(params, images, labels):
+        inputs = (params, images, labels)
+        device = images.device
+        key = tuple((tuple(x.shape), x.dtype, x.device)
+                    for x in tree_leaves(inputs))
+        with lock:
+            if key not in graphs:
+                graphs[key] = StepGraph(step, (), device=device,
+                                        error_mode="thread_local")
+            _, (loss, grads) = graphs[key](inputs)
+            return loss.clone(), tree_map(torch.clone, grads)
+
+    return f
+
+
+def train_step(ccfg: CNNConfig, opt):
+    """The quickstart's step, ``(state, batch) -> (state, loss)`` with
+    ``state = (params, opt_state)`` and ``batch = (images, labels)``: the
+    loss and gradients (:func:`value_and_grad`) and the optimizer's update
+    in one function, as the JAX quickstart jits them together
+    (``examples/quickstart.py:42-48``); run it through
+    ``launch.graphs.StepGraph`` to replay it as one CUDA graph."""
+    grad = value_and_grad(ccfg)
+
+    def step(state, batch):
+        params, opt_state = state
+        loss, grads = grad(params, *batch)
+        with torch.no_grad():
+            params, opt_state = opt.update(grads, opt_state, params)
+        return (params, opt_state), loss
+
+    return step
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,4 +229,5 @@ class CnnGradShard:
 
 __all__ = ["CnnGradShard", "conv_features", "error_rate", "fc_logits",
            "forward", "init_cnn", "loss_and_grads", "nll_loss",
-           "params_from_numpy", "params_to_numpy", "shard_dataset"]
+           "params_from_numpy", "params_to_numpy", "shard_dataset",
+           "train_step", "value_and_grad"]

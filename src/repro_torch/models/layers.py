@@ -37,9 +37,13 @@ def checkpointed(fn, *args, enabled: bool = True):
     """``fn(*args)``; when ``enabled`` and autograd records, under
     ``torch.utils.checkpoint`` (non-reentrant), so its activations are
     recomputed in the backward pass, as the JAX package's
-    ``jax.checkpoint``."""
+    ``jax.checkpoint``.  The RNG state is not saved and restored around
+    the recomputation (``preserve_rng_state=False``): no training forward
+    draws from a generator, and a CUDA graph capture refuses to read a
+    generator's state."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
 
 

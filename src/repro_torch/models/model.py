@@ -129,7 +129,8 @@ def lm_loss_chunked(feats, head_w, labels, mask, *, n_chunks: int = 8):
     for c in range(n_chunks):
         m, ssum, gold = checkpoint(_chunk_logsumexp, m, ssum, gold, feats,
                                    head_w[:, c * vc:(c + 1) * vc], labels,
-                                   c * vc, use_reentrant=False)
+                                   c * vc, use_reentrant=False,
+                                   preserve_rng_state=False)
     lse = torch.log(ssum.clamp_min(1e-30)) + m
     nll = (lse - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1.0)
@@ -168,7 +169,8 @@ def _lm_loss_chunked_sharded(feats, head_w, labels, mask, n_chunks: int):
     for c0 in range(0, w.shape[1], vc):
         m, ssum, gold = checkpoint(_chunk_logsumexp, m, ssum, gold, f,
                                    w[:, c0:c0 + vc], lab, lo + c0,
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
     top = max_over(m, mesh, vocab)
     lse = torch.log(sum_over(ssum * torch.exp(m - top), mesh,
                              vocab).clamp_min(1e-30)) + top

@@ -9,8 +9,11 @@ card: how each row's lr was chosen.
 Each (lr, steps) runs ``chip_smoke._zoo_full`` on the row's config, batch
 and sequence, at AdaGrad's β ``--beta`` (the paper's 1 by default; 1e-8
 is plain AdaGrad, as ``benchmarks/fig3_convergence.py`` sets it):
-``split_concurrent`` steps from a seeded init, K2 on every step with its
-first and last launch re-run bitwise, no K3-K5 call, one traced step.
+``split_concurrent`` steps from a seeded init through the step's CUDA
+graph (``launch.graphs.StepGraph``), K2 on every step with its first and
+last launch re-run bitwise, no K3-K5 call, one traced replay, the first
+``chip_smoke.GRAPH_CMP_STEPS`` steps held to an eager loop and the
+planted graph faults (so at least that many steps).
 It prints the phase's ``[13b train zoo]`` line (the losses among it),
 then whether the loss fell (the mean of the last 3 steps below the first
 3's) or what else failed.  Needs one card.
@@ -39,6 +42,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, nargs="+", default=[8])
     ap.add_argument("--beta", type=float, default=1.0)
     args = ap.parse_args(argv)
+    if min(args.steps) < chip_smoke.GRAPH_CMP_STEPS:
+        ap.error(f"--steps below {chip_smoke.GRAPH_CMP_STEPS}, the steps "
+                 f"the row holds to its eager loop")
     chip_smoke.phase_environment()
     chip_smoke.build.build()
     arch, changes, reduced, batch, seq = rows[args.arch][:5]
