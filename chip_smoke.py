@@ -156,12 +156,27 @@ Phases, one line each:
      params and accumulators f32), then one bf16 ``dp_full`` step of the
      dense, ssm and encdec smoke configs on the card against the host CPU
      within the CPU tests' bf16 training bars;
- 14. the sharded paths on a 1x1 NCCL mesh: a. phase 9's step through
-     ``train_loop(mesh=)`` against the unsharded run; b. the FIG4 server
-     step row-sharded, bitwise; c. the qwen3-moe cut at 4 layers served
-     under ``fsdp_tp`` through the expert-parallel MoE, the prefill's
-     cache placed as the JAX prefill's compile places it (k and v: the
-     batch over data; pos replicated);
+ 14. the sharded paths on a 1x1 NCCL mesh, the steps on the mesh
+     through ``StepBundle.lower()`` (one CUDA graph of the step, DTensor's
+     dispatch and the collectives inside, replayed after the first call;
+     the collective calls each capture records counted and printed, more
+     than zero): a. phase 9's step through ``train_loop(mesh=)`` (5
+     steps, K2 inside the graph) held to an eager mesh loop of the same
+     bundle (bit for bit where that step is bitwise run to run, measured
+     first) and to the unsharded ``train_loop`` (the f32 model bar), the
+     two planted graph faults of 9a (through ``launch.steps``) each
+     failing the first; b. the FIG4 server step row-sharded, bitwise; c.
+     the qwen3-moe cut at 4 layers served under ``fsdp_tp`` through the
+     expert-parallel MoE, the prefill's cache placed as the JAX prefill's
+     compile places it (k and v: the batch over data; pos replicated),
+     the prefill eager and the decode captured; d. rwkv6-1.6b whole, the
+     same way, K5 inside the decode graph (and in the traced replay); c
+     and d held to two eager mesh loops (their bar) and to the plain
+     unsharded loop of ``decode_step`` (``SERVE_TOL``, equal tokens), c's
+     runner that never updates its index buffer failing the first; each
+     row prints captured, eager-mesh and unsharded (captured and, for c
+     and d, eager) ms a step, traced device ms and idle share, peaks and
+     the capture's seconds;
  15. the dry-run against real steps: phase 9's ``split_concurrent`` step
      and phase 6's prefill (f32) through ``python -m
      repro_torch.launch.dryrun`` (meta device, a 1x1 shape-only mesh, a
@@ -2921,10 +2936,11 @@ def _k2_launches_a_step(*trees) -> int:
     return total
 
 
-def _traced_device_split(fn) -> tuple:
+def _traced_device_split(fn, kernels: bool = True) -> tuple:
     """One call of ``fn`` traced (CUDA activity only): the device ms of its
     kernels split into the repository's kernels, matrix products and the
-    rest, and the kernels it ran.  The trace's events are read as the
+    rest, and the kernels it ran (with ``kernels``, both a product and one
+    of the repository's kernels must be among them).  The trace's events are read as the
     profiler keeps them (``kineto_results``), not parsed into its
     ``FunctionEvent`` objects, which for a step of ~10^5 kernels (the
     recurrent families' step loops) would take minutes."""
@@ -2948,7 +2964,7 @@ def _traced_device_split(fn) -> tuple:
         if part == "other":
             label = _kernel_label(name)
             others[label] = others.get(label, 0.0) + ms
-    check(split["matmul"] > 0 and split["repo_kernels"] > 0,
+    check(split["matmul"] > 0 and (split["repo_kernels"] > 0 or not kernels),
           f"the profiler traced the step's matrix products and K2: {split}")
     return split, others, n
 
@@ -3245,10 +3261,12 @@ def phase_train_zoo() -> int:
 
 # --- 14. the sharded paths on a 1x1 mesh over NCCL ---------------------------
 
-#: 14a: split_concurrent steps of qwen1.5-0.5b, sharded and not
-SHARD_TRAIN_STEPS = 3
+#: 14a: split_concurrent steps of qwen1.5-0.5b, sharded and not: as many as
+#: the planted graph faults take to show (the stale-head refresh, K = 4,
+#: falls at the fourth)
+SHARD_TRAIN_STEPS = GRAPH_CMP_STEPS
 #: 14c: the qwen3-moe-30b-a3b cut (every width, 4 layers as in 13b), its
-#: prompt and new tokens
+#: prompt and new tokens; 14d serves rwkv6-1.6b whole at the same lengths
 SHARD_MOE_CUT = dict(num_layers=4)
 SHARD_PROMPT, SHARD_GEN = 64, 4
 
@@ -3262,39 +3280,486 @@ def _whole_state(state):
                          for k, v in vars(state).items()})
 
 
+def _local_state(state):
+    """A TrainState's DTensor leaves as their local shards (views)."""
+    from repro_torch.core.split_parallel import TrainState
+    from repro_torch.tree import tree_map
+    return TrainState(**{k: tree_map(graphs.local, v)
+                         for k, v in vars(state).items()})
+
+
 def _greedy(prefill, decode, params, prompts, gen: int, vocab: int):
     """Prefill (cache for prompt + ``gen``) and ``gen`` greedy decode
     steps: (each call's last-position logits (B, V) on the host, the
-    tokens fed)."""
+    tokens fed, each decode call's seconds (``_synced``), the last
+    cache)."""
     from repro_torch.launch.train import _whole
     s = prompts.shape[1]
     logits, cache = prefill(params, {"tokens": prompts}, cache_len=s + gen)
-    out, toks = [_whole(logits)[:, -1, :vocab].cpu()], []
+    out, toks, secs = [_whole(logits)[:, -1, :vocab].cpu()], [], []
     for i in range(gen):
         tok = out[-1].argmax(-1)[:, None].to(torch.int32).cuda()
         toks.append(tok.cpu())
-        logits, cache = decode(params, cache, tok, s + i)
+        (logits, cache), took = _synced(decode, params, cache, tok, s + i)
+        secs.append(took)
         out.append(_whole(logits)[:, -1, :vocab].cpu())
-    return out, toks
+    return out, toks, secs, cache
 
 
-def phase_sharded() -> dict:
-    """Phase 14: the sharding layer's paths on a 1x1 mesh (one card holds
-    one NCCL rank), each against its unsharded run on the card.  Returns
-    the launches of K2, K1 and K3 on them."""
+class _CountingCapture(graphs.Capture):
+    """``graphs.Capture`` that also counts the collective calls its
+    capture records (``launch.hlo_analysis.CollectiveCalls``):
+    ``collectives``, by kind.  On one rank a collective may launch no
+    kernel to see in a trace, so the calls are counted where they are
+    made."""
+
+    collectives = None
+
+    def record(self, body):
+        from repro_torch.launch.hlo_analysis import CollectiveCalls
+        with CollectiveCalls() as calls:
+            captured = super().record(body)
+        self.collectives = dict(calls.calls)
+        return captured
+
+
+@contextlib.contextmanager
+def _counting_captures():
+    """Within the block, both graph runners capture with
+    :class:`_CountingCapture`."""
+    from repro_torch.launch.serve import DecodeGraph
+    with _patched(StepGraph, "capture_type", lambda _: _CountingCapture), \
+            _patched(DecodeGraph, "capture_type",
+                     lambda _: _CountingCapture):
+        yield
+
+
+def _unsharded_graph_decode(api):
+    """``api.decode_step`` through a ``DecodeGraph`` made at the first
+    call, called as a decode step is."""
+    from repro_torch.launch.serve import DecodeGraph
+    held = []
+
+    def decode(params, cache, tok, index):
+        if not held:
+            held.append(DecodeGraph(api, params, cache, tok.shape[0]))
+        return held[0].step(tok, index), cache
+    return decode
+
+
+class _TimedGraphs:
+    """Within the block, every ``StepGraph`` that ``owner`` (a module)
+    makes keeps each call's seconds (``secs``) and its last inputs, and
+    the last one made is ``runner``."""
+
+    def __init__(self, owner):
+        self.owner, self.secs, self.runner, self.inputs = owner, [], None, None
+
+    def __enter__(self):
+        timed = self
+        self.base = self.owner.StepGraph
+
+        class Timed(self.base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                timed.runner = self
+
+            def __call__(self, inputs):
+                timed.inputs = inputs
+                out, took = _synced(super().__call__, inputs)
+                timed.secs.append(took)
+                return out
+
+        self.owner.StepGraph = Timed
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.StepGraph = self.base
+
+
+class _EagerLowered:
+    """``StepBundle.lower`` patched out for the eager mesh loop: the
+    bundle's own call, each one timed, the first call's state and batch
+    kept."""
+
+    def __init__(self, bundle, secs: list, first: list):
+        self.bundle, self.secs, self.first = bundle, secs, first
+
+    def __call__(self, state, batch):
+        if not self.first:
+            self.first.extend([state, batch])
+        out, took = _synced(self.bundle, state, batch)
+        self.secs.append(took)
+        return out
+
+
+def _shard_train(mesh) -> int:
+    """14a (the module docstring); returns K2's launches."""
     import torch.distributed as dist
-    from datetime import timedelta
+    from repro_torch.configs import RunConfig, get_arch_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+
+    run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
+                    learning_rate=TRAIN_LR, compute_dtype="float32", seed=0)
+    cfg = get_arch_config(TRAIN_ARCH)
+    kw = dict(steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              device="cuda", log_every=SHARD_TRAIN_STEPS)
+    with _TimedGraphs(train) as plain:
+        want_losses, want = train.train_loop(cfg, run, **kw)
+    plain.runner = plain.inputs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the eager mesh loop of the bundle, then its first step twice from
+    # the same init: the bar the captured run is held to, measured first
+    secs, first = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(steps_mod.StepBundle, "lower",
+                  lambda _: lambda self: _EagerLowered(
+                      self, secs, first)):
+        eager_losses, eager = train.train_loop(cfg, run, mesh=mesh, **kw)
+    eager_peaks = (torch.cuda.max_memory_allocated() / 1e9,
+                   torch.cuda.max_memory_reserved() / 1e9)
+    bundle = steps_mod.build_train_step(cfg, run, _train_shape(), mesh)
+    twice = _eager_twice(lambda st, bt: _local_pair(bundle(st, bt)), *first)
+    bar = twice["bar"]
+    del first[:], bundle
+    eager_digest = _digest(_local_state(eager))
+    eager_whole = None if bar is BITWISE else _whole_state(eager)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def held(losses_, state) -> tuple:
+        """(the run's losses and final state at ``bar`` of the eager mesh
+        loop's, the largest gap): by digest where the bar is bitwise."""
+        l_ok, l_gap = _gap([torch.tensor(losses_)],
+                           [torch.tensor(eager_losses)], bar)
+        if bar is BITWISE:
+            return (l_ok and torch.equal(_digest(_local_state(state)),
+                                         eager_digest)), l_gap
+        s_ok, s_gap = _state_gap(_whole_state(state), eager_whole)
+        return l_ok and s_ok, max(l_gap, s_gap)
+
+    # the captured mesh step: train_loop(mesh=) through bundle.lower()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _TimedGraphs(steps_mod) as cap, _counting_captures():
+        losses, got = train.train_loop(cfg, run, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in WRAPPERS}
+    peaks = (torch.cuda.max_memory_allocated() / 1e9,
+             torch.cuda.max_memory_reserved() / 1e9)
+    graph_ok, graph_gap = held(losses, got)
+    ok, gap = _state_gap(_whole_state(got), want)
+    loss_gap = max(abs(a - b) for a, b in zip(losses, want_losses))
+    del got, want
+    runner = cap.runner
+    split, _, _ = _traced_device_split(lambda: runner(cap.inputs))
+    numbers = _capture_numbers(runner)
+    collectives = dict(runner.capture.collectives or {})
+    del runner
+    cap.runner = cap.inputs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(graph_ok, f"14a: the captured mesh run's losses and state at "
+          f"{bar} of the eager mesh loop's: gap {graph_gap}")
+    check(ok and loss_gap <= TRAIN_TOL["atol"],
+          f"14a: every loss and state leaf of the captured mesh run within "
+          f"the f32 model bar of the unsharded one: loss gap {loss_gap}, "
+          f"state gap {gap}")
+    launches = counts["adagrad_update_leaves"]
+    check(launches == 2 * SHARD_TRAIN_STEPS and all(
+        counts[w.__name__] == 0 for w in (
+            flash_attention, wkv, mamba_scan, server_step_update,
+            adagrad_update))
+          and numbers["per_replay"].get(adagrad_update_leaves) == 2,
+          f"14a: K2 twice a step on the local shards, inside the graph "
+          f"(counted a replay: {numbers['per_replay']}), and no other "
+          f"kernel: {counts}")
+    check(sum(collectives.values()) > 0,
+          f"14a: the capture recorded the step's collectives: "
+          f"{collectives}")
+
+    planted = {}
+    for name, ctx in (
+            ("stale_batch", _patched(steps_mod, "StepGraph",
+                                     lambda _: _StaleBatch)),
+            ("frozen_refresh", _patched(steps_mod, "make_train_step",
+                                        _refresh_frozen_in))):
+        with ctx:
+            f_losses, f_state = train.train_loop(cfg, run, mesh=mesh, **kw)
+        f_ok, planted[name] = held(f_losses, f_state)
+        del f_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not f_ok, f"14a: the planted graph fault {name} fails the "
+              f"check against the eager mesh loop: gap only "
+              f"{planted[name]}")
+    del eager_whole
+    cap_ms = 1e3 * statistics.median(cap.secs[TRAIN_WARM:SHARD_TRAIN_STEPS])
+    eager_ms = 1e3 * statistics.median(secs[TRAIN_WARM:])
+    dev = sum(split.values())
+    eager_dev = sum(twice["split"].values())
+    say("14a shard-train", arch=TRAIN_ARCH, mesh="1x1",
+        backend=dist.get_backend(), strategy=run.strategy,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_TRAIN_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        max_loss_gap=loss_gap, max_state_gap=gap,
+        adagrad_launches=launches,
+        graph_launches_a_replay=",".join(
+            f"{w.__name__}:{n}" for w, n in numbers["per_replay"].items()),
+        captured_ms_median=f"{cap_ms:.3f}",
+        eager_mesh_ms_median=f"{eager_ms:.3f}",
+        unsharded_captured_ms_median=_ms_median(
+            plain.secs[TRAIN_WARM:SHARD_TRAIN_STEPS]),
+        first_step_ms=f"{1e3 * cap.secs[0]:.3f}",
+        second_step_ms=f"{1e3 * cap.secs[1]:.3f}",
+        device_ms=f"{dev:.3f}", idle_share=f"{1 - dev / cap_ms:.3f}",
+        eager_device_ms=f"{eager_dev:.3f}",
+        eager_idle_share=f"{1 - eager_dev / eager_ms:.3f}",
+        peak_gb=f"{peaks[0]:.2f}", reserved_gb=f"{peaks[1]:.2f}",
+        eager_peak_gb=f"{eager_peaks[0]:.2f}",
+        eager_reserved_gb=f"{eager_peaks[1]:.2f}",
+        capture_s=f"{numbers['capture_s']:.3f}",
+        instantiate_s=f"{numbers['instantiate_s']:.3f}",
+        capture_collectives=",".join(f"{k}:{v}" for k, v in
+                                     sorted(collectives.items())),
+        graph_vs_eager_bar="bitwise" if bar is BITWISE else "TRAIN_TOL",
+        graph_vs_eager_max_gap=f"{graph_gap:.3g}",
+        **{f"planted_{k}_gap": f"{v:.3g}" for k, v in planted.items()})
+    return launches
+
+
+def _train_shape():
+    from repro_torch.configs import InputShape
+    return InputShape("custom", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+
+def _local_pair(out):
+    """A mesh step's ``(new state, metrics)`` with every DTensor as its
+    local shard."""
+    new, metrics = out
+    return _local_state(new), {k: graphs.local(v)
+                               for k, v in metrics.items()}
+
+
+def _shard_serve(phase: str, cfg, mesh, *, wrapper, launches: int,
+                 stale_index: bool, in_decode: bool,
+                 moe: bool = False) -> int:
+    """14c/14d (the module docstring) for ``cfg`` under ``fsdp_tp``:
+    ``wrapper``, the kernel on the path, must launch ``launches`` times in
+    the captured run (prefill and decode), and with ``in_decode`` in each
+    traced decode step.  Returns them."""
+    import torch.distributed as dist
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.configs import InputShape, RunConfig, get_arch_config
-    from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.steps import (build_decode_step,
                                           build_prefill_step)
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import build_model
-    from repro_torch.optim import adagrad
     from repro_torch.sharding.spec import values_tree
+
+    arch = cfg.name
+    tol = SERVE_TOL[arch]
+    vocab = cfg.vocab_size
+    api = build_model(cfg, compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = values_tree(api.init(gen))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (SERVE_BATCH, SHARD_PROMPT))).to("cuda", torch.int32)
+    # the plain unsharded decode, the reference; then the unsharded
+    # DecodeGraph, timed alone (phases 6-12 hold it to the plain decode)
+    with torch.inference_mode():
+        want_l, want_t, want_secs, _ = _greedy(
+            api.prefill, api.decode_step, params, prompts, SHARD_GEN, vocab)
+        _, _, plain_graph_secs, _ = _greedy(
+            api.prefill, _unsharded_graph_decode(api), params, prompts,
+            SHARD_GEN, vocab)
+    gc.collect()
+    srun = RunConfig(arch=arch, strategy="fsdp_tp", compute_dtype="float32")
+    pre = build_prefill_step(cfg, srun, InputShape(
+        "p", SHARD_PROMPT, SERVE_BATCH, "prefill"), mesh)
+    dec = build_decode_step(cfg, srun, InputShape(
+        "d", SHARD_PROMPT + SHARD_GEN, SERVE_BATCH, "decode"), mesh)
+    layout = ("replicated_batch" if dec.rules["batch"] is None
+              else "batch_sharded")
+    pre_p, = pre.place(params)            # placed once for every call
+    dec_p, = dec.place(params)
+    sharded_moe, made = [], {}
+
+    def counting(orig):
+        def run_(*a, **k):
+            sharded_moe.append(1)
+            return orig(*a, **k)
+        return run_
+
+    def prefill(p, b, **k):
+        logits, cache = pre(pre_p, b, **k)
+        made.update({key: (tuple(v.placements), tuple(v.to_local().shape),
+                           tuple(v.shape)) for key, v in cache.items()})
+        return logits, cache
+
+    def eager_decode(p, c, t, i):
+        return dec(dec_p, c, t, i)
+
+    # the eager mesh loop, twice: its run-to-run bar
+    # no_grad: DTensor's ops cannot run on inference-mode tensors
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        with _patched(moe_mod, "_apply_moe_sharded", counting):
+            eager_l, eager_t, eager_secs, eager_cache = _greedy(
+                prefill, eager_decode, None, prompts, SHARD_GEN, vocab)
+        eager_peaks = (torch.cuda.max_memory_allocated() / 1e9,
+                       torch.cuda.max_memory_reserved() / 1e9)
+        eager_split, _, _ = _traced_device_split(
+            lambda: eager_decode(None, eager_cache, eager_t[-1].cuda(),
+                                 SHARD_PROMPT + SHARD_GEN - 1),
+            kernels=in_decode)
+        del eager_cache
+        again_l, again_t, _, _ = _greedy(prefill, eager_decode, None,
+                                         prompts, SHARD_GEN, vocab)
+        bar = (BITWISE if all(torch.equal(a, b) for a, b in
+                              zip(eager_l, again_l)) else tol)
+        del again_l, again_t
+
+        # the captured mesh decode: the bundles' lower()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pre_run, dec_run = pre.lower(), dec.lower()
+        _zero_counts()
+        with _counting_captures():
+            got_l, got_t, got_secs, got_cache = _greedy(
+                lambda p, b, **k: pre_run(pre_p, b, **k),
+                lambda p, c, t, i: dec_run(dec_p, c, t, i), None, prompts,
+                SHARD_GEN, vocab)
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        peaks = (torch.cuda.max_memory_allocated() / 1e9,
+                 torch.cuda.max_memory_reserved() / 1e9)
+        graph = dec_run.graph
+        split, _, _ = _traced_device_split(
+            lambda: dec_run(dec_p, got_cache, got_t[-1].cuda(),
+                            SHARD_PROMPT + SHARD_GEN - 1), kernels=in_decode)
+        per_replay = {w.__name__: n for w, n in graph.per_replay.items()}
+        collectives = dict(graph.capture.collectives or {})
+        numbers = dict(capture_s=graph.capture.capture_s,
+                       instantiate_s=graph.capture.instantiate_s)
+        del got_cache, graph, dec_run, pre_run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        planted_gap = None
+        if stale_index:
+            with _patched(steps_mod, "DecodeGraph",
+                          lambda _: _stale_index()):
+                bad_run = dec.lower()
+                bad_l, bad_t, _, _ = _greedy(
+                    prefill, lambda p, c, t, i: bad_run(dec_p, c, t, i),
+                    None, prompts, SHARD_GEN, vocab)
+            bad_ok, planted_gap = _gap(bad_l, eager_l, bar)
+            check(not (bad_ok and all(torch.equal(a, b)
+                                      for a, b in zip(bad_t, eager_t))),
+                  f"{phase}: a runner that never updates its index buffer "
+                  f"fails the check against the eager mesh loop: gap only "
+                  f"{planted_gap}")
+            del bad_run, bad_l, bad_t
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    check(all(torch.equal(a, b) for a, b in zip(got_t, eager_t)),
+          f"{phase}: the captured mesh decode's tokens equal the eager mesh "
+          f"loop's")
+    graph_ok, graph_gap = _gap(got_l, eager_l, bar)
+    check(graph_ok, f"{phase}: the captured mesh decode's logits at {bar} "
+          f"of the eager mesh loop's: gap {graph_gap}")
+    gap = max(_max_err(a, b) for a, b in zip(got_l, want_l))
+    check(all(_within(a, b, **tol) for a, b in zip(got_l, want_l))
+          and all(torch.equal(a, b) for a, b in zip(got_t, want_t)),
+          f"{phase}: the sharded prefill and captured decode within {tol} "
+          f"of the plain unsharded prefill and decode, the same tokens: gap "
+          f"{gap}")
+    got = counts[wrapper.__name__]
+    check(got == launches,
+          f"{phase}: {wrapper.__name__} launched {launches} times on the "
+          f"local shards (the decode's counted a replay: {per_replay}), got "
+          f"{got}")
+    check(sum(collectives.values()) > 0,
+          f"{phase}: the capture recorded the step's collectives: "
+          f"{collectives}")
+    fields = {}
+    if moe:
+        batch_over_data = (Shard(1), Replicate())
+        want_pl = {"k": batch_over_data, "v": batch_over_data,
+                   "pos": (Replicate(), Replicate())}
+        check({k: pl for k, (pl, _, _) in made.items()} == want_pl
+              and all(loc == whole for _, loc, whole in made.values()),
+              f"{phase}: the prefill's cache placed as the JAX prefill's "
+              f"compile places it (k and v: the batch over data; pos "
+              f"replicated), each local shard whole on one rank: {made}")
+        n_moe = cfg.num_layers * (1 + SHARD_GEN)
+        check(len(sharded_moe) == n_moe,
+              f"{phase}: the expert-parallel MoE in every layer of every "
+              f"eager step ({len(sharded_moe)} of {n_moe})")
+        fields = dict(experts=cfg.moe.num_experts,
+                      sharded_moe_calls=len(sharded_moe),
+                      prefill_cache_placements=";".join(
+                          f"{k}={','.join(map(str, pl))}"
+                          for k, (pl, _, _) in sorted(made.items())
+                      ).replace(" ", ""))
+    cap_ms = 1e3 * statistics.median(got_secs[1:])
+    eager_ms = 1e3 * statistics.median(eager_secs[1:])
+    dev, eager_dev = sum(split.values()), sum(eager_split.values())
+    say(phase, arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, mesh="1x1", backend=dist.get_backend(),
+        rules="fsdp_tp", decode_layout=layout, batch=SERVE_BATCH,
+        prompt=SHARD_PROMPT, gen=SHARD_GEN, **fields,
+        **{f"{wrapper.__name__}_launches": got},
+        graph_launches_a_replay=",".join(
+            f"{n}:{c}" for n, c in sorted(per_replay.items())) or "none",
+        captured_ms_median=f"{cap_ms:.3f}",
+        eager_mesh_ms_median=f"{eager_ms:.3f}",
+        unsharded_captured_ms_median=_ms_median(plain_graph_secs[1:]),
+        unsharded_eager_ms_median=_ms_median(want_secs[1:]),
+        first_step_ms=f"{1e3 * got_secs[0]:.3f}",
+        device_ms=f"{dev:.3f}", idle_share=f"{1 - dev / cap_ms:.3f}",
+        eager_device_ms=f"{eager_dev:.3f}",
+        eager_idle_share=f"{1 - eager_dev / eager_ms:.3f}",
+        peak_gb=f"{peaks[0]:.2f}", reserved_gb=f"{peaks[1]:.2f}",
+        eager_peak_gb=f"{eager_peaks[0]:.2f}",
+        eager_reserved_gb=f"{eager_peaks[1]:.2f}",
+        capture_s=f"{numbers['capture_s']:.3f}",
+        instantiate_s=f"{numbers['instantiate_s']:.3f}",
+        capture_collectives=",".join(f"{k}:{v}" for k, v in
+                                     sorted(collectives.items())),
+        graph_vs_eager_bar=("bitwise" if bar is BITWISE
+                            else f"atol={bar['atol']},rtol={bar['rtol']}"),
+        graph_vs_eager_max_gap=f"{graph_gap:.3g}", tokens_equal="yes",
+        max_logit_gap_vs_unsharded=f"{gap:.3g}",
+        stale_index_gap=("n/a" if planted_gap is None
+                         else f"{planted_gap:.3g}"))
+    del params, pre_p, dec_p, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_sharded() -> dict:
+    """Phase 14: the sharding layer's paths on a 1x1 mesh (one card holds
+    one NCCL rank), each against its unsharded run on the card; the steps
+    on the mesh through ``StepBundle.lower()``, replayed as CUDA graphs.
+    Returns the launches of K2, K1, K3 and K5 on them."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adagrad
     from repro_torch.tree import tree_map
 
     out = {}
@@ -3305,45 +3770,9 @@ def phase_sharded() -> dict:
         try:
             mesh = make_local_mesh(1, 1, device="cuda")
 
-            # a. train_loop on the mesh against train_loop without one
-            run = RunConfig(arch=TRAIN_ARCH, strategy="split_concurrent",
-                            learning_rate=TRAIN_LR, compute_dtype="float32",
-                            seed=0)
-            cfg = get_arch_config(TRAIN_ARCH)
-            kw = dict(steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH,
-                      seq=TRAIN_SEQ, device="cuda",
-                      log_every=SHARD_TRAIN_STEPS)
-            want_losses, want = train.train_loop(cfg, run, **kw)
-            gc.collect()
-            _zero_counts()
-            (losses, got), took = _synced(train.train_loop, cfg, run,
-                                          mesh=mesh, **kw)
-            counts = {w.__name__: w.launches for w in WRAPPERS}
-            got = _whole_state(got)
-            ok, gap = _state_gap(got, want)
-            loss_gap = max(abs(a - b) for a, b in zip(losses, want_losses))
-            check(ok and loss_gap <= TRAIN_TOL["atol"],
-                  f"14a: every loss and state leaf of the sharded run "
-                  f"within the f32 model bar of the unsharded one: loss gap "
-                  f"{loss_gap}, state gap {gap}")
-            launches = counts["adagrad_update_leaves"]
-            check(launches == 2 * SHARD_TRAIN_STEPS and all(
-                counts[w.__name__] == 0 for w in (
-                    flash_attention, wkv, mamba_scan, server_step_update,
-                    adagrad_update)),
-                  f"14a: K2 twice a step on the local shards and no other "
-                  f"kernel: {counts}")
-            out["adagrad"] = launches
-            say("14a shard-train", arch=TRAIN_ARCH, mesh="1x1",
-                backend=dist.get_backend(), strategy=run.strategy,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_TRAIN_STEPS,
-                losses=",".join(f"{x:.6f}" for x in losses),
-                max_loss_gap=loss_gap, max_state_gap=gap,
-                adagrad_launches=launches,
-                s_per_step=f"{took / SHARD_TRAIN_STEPS:.3f}")
-            del got, want
-            gc.collect()
-            torch.cuda.empty_cache()
+            # a. train_loop on the mesh, captured, against its eager loop
+            # and train_loop without a mesh
+            out["adagrad"] = _shard_train(mesh)
 
             # b. FusedServerStep row-sharded over the data axis, at FIG4
             opt = adagrad(FABRIC_LR, beta=1.0)
@@ -3378,96 +3807,22 @@ def phase_sharded() -> dict:
                 vs_unsharded="bitwise", server_step_launches=k1,
                 step_ms=f"{1e3 * took:.3f}")
 
-            # c. the qwen3-moe cut served under fsdp_tp rules
+            # c. the qwen3-moe cut served under fsdp_tp rules, the decode
+            # captured
             mcfg = dataclasses.replace(get_arch_config("qwen3-moe-30b-a3b"),
                                        **SHARD_MOE_CUT)
-            arch = "qwen3-moe-30b-a3b"
-            api = build_model(mcfg, compute_dtype=torch.float32)
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(0)
-            mparams = values_tree(api.init(gen))
-            prompts = torch.from_numpy(np.random.default_rng(0).integers(
-                0, mcfg.vocab_size, (SERVE_BATCH, SHARD_PROMPT))).to(
-                    "cuda", torch.int32)
-            with torch.inference_mode():
-                want_l, want_t = _greedy(api.prefill, api.decode_step,
-                                         mparams, prompts, SHARD_GEN,
-                                         mcfg.vocab_size)
-            srun = RunConfig(arch=arch, strategy="fsdp_tp",
-                             compute_dtype="float32")
-            pre = build_prefill_step(mcfg, srun, InputShape(
-                "p", SHARD_PROMPT, SERVE_BATCH, "prefill"), mesh)
-            dec = build_decode_step(mcfg, srun, InputShape(
-                "d", SHARD_PROMPT + SHARD_GEN, SERVE_BATCH, "decode"), mesh)
-            layout = ("replicated_batch" if dec.rules["batch"] is None
-                      else "batch_sharded")
-            pre_p, = pre.place(mparams)       # placed once for every call
-            dec_p, = dec.place(mparams)
-            sharded_moe = []
+            out["flash_attention"] = _shard_serve(
+                "14c shard-serve", mcfg, mesh, wrapper=flash_attention,
+                launches=mcfg.num_layers, stale_index=True, in_decode=False,
+                moe=True)
 
-            def counting(orig):
-                def run_(*a, **k):
-                    sharded_moe.append(1)
-                    return orig(*a, **k)
-                return run_
-
-            made = {}
-
-            def prefill(p, b, **k):
-                logits, cache = pre(pre_p, b, **k)
-                made.update({key: (tuple(v.placements),
-                                   tuple(v.to_local().shape), tuple(v.shape))
-                             for key, v in cache.items()})
-                return logits, cache
-
-            # no_grad: DTensor's ops cannot run on inference-mode tensors
-            with torch.no_grad(), \
-                    _patched(moe_mod, "_apply_moe_sharded", counting):
-                _zero_counts()
-                t0 = time.perf_counter()
-                got_l, got_t = _greedy(
-                    prefill, lambda p, c, t, i: dec(dec_p, c, t, i),
-                    None, prompts, SHARD_GEN, mcfg.vocab_size)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = {w.__name__: w.launches for w in WRAPPERS}
-            batch_over_data = (Shard(1), Replicate())
-            want_pl = {"k": batch_over_data, "v": batch_over_data,
-                       "pos": (Replicate(), Replicate())}
-            check({k: pl for k, (pl, _, _) in made.items()} == want_pl
-                  and all(loc == whole for _, loc, whole in made.values()),
-                  f"14c: the prefill's cache placed as the JAX prefill's "
-                  f"compile places it (k and v: the batch over data; pos "
-                  f"replicated), each local shard whole on one rank: "
-                  f"{made}")
-            gap = max(_max_err(a, b) for a, b in zip(got_l, want_l))
-            tol = SERVE_TOL[arch]
-            check(all(_within(a, b, **tol) for a, b in zip(got_l, want_l))
-                  and all(torch.equal(a, b) for a, b in zip(got_t, want_t)),
-                  f"14c: the sharded prefill and decode within {tol} of the "
-                  f"unsharded ones, the same tokens: gap {gap}")
-            n_moe = mcfg.num_layers * (1 + SHARD_GEN)
-            k3 = counts["flash_attention"]
-            check(len(sharded_moe) == n_moe and k3 == mcfg.num_layers,
-                  f"14c: the expert-parallel MoE in every layer of every "
-                  f"step ({len(sharded_moe)} of {n_moe}) and K3 on the local "
-                  f"shards once a layer of the prefill ({k3} launches)")
-            out["flash_attention"] = k3
-            say("14c shard-serve", arch=arch, layers=mcfg.num_layers,
-                d_model=mcfg.d_model, experts=mcfg.moe.num_experts,
-                params=sum(x.numel() for x in tree_leaves(mparams)),
-                mesh="1x1", rules="fsdp_tp", decode_layout=layout,
-                batch=SERVE_BATCH, prompt=SHARD_PROMPT, gen=SHARD_GEN,
-                sharded_moe_calls=len(sharded_moe),
-                prefill_cache_placements=";".join(
-                    f"{k}={','.join(map(str, pl))}"
-                    for k, (pl, _, _) in sorted(made.items())).replace(
-                        " ", ""),
-                flash_attention_launches=k3, max_logit_gap=gap,
-                tokens_equal="yes", wall_s=f"{wall:.3f}")
-            del mparams, pre_p, dec_p, api
-            gc.collect()
-            torch.cuda.empty_cache()
+            # d. rwkv6-1.6b whole: the prefill eager, the decode captured
+            # with K5 inside
+            finch = get_arch_config("rwkv6-1.6b")
+            out["rwkv6"] = _shard_serve(
+                "14d shard-serve", finch, mesh, wrapper=wkv,
+                launches=(1 + SHARD_GEN) * finch.num_layers,
+                stale_index=False, in_decode=True)
         finally:
             dist.destroy_process_group()
     return out
@@ -3824,6 +4179,7 @@ def main() -> int:
     kernels["adagrad"]["launches"] += sharded["adagrad"]
     kernels["server_step"]["launches"] += sharded["server_step"]
     kernels["flash_attention"]["launches"] += sharded["flash_attention"]
+    kernels["rwkv6"]["launches"] += sharded["rwkv6"]
     dryrun = phase_dryrun()
     kernels["adagrad"]["launches"] += (dryrun["adagrad_update_leaves"]
                                        + dryrun["adagrad_update"])

@@ -9,6 +9,15 @@ wrappers' counts at each replay.  ``launch.serve.DecodeGraph`` replays the
 decode step with it; :class:`StepGraph` replays a step ``fn(state,
 inputs) -> (new_state, out)`` (the training step of ``launch.train``, the
 CNN's value-and-grad and the quickstart's step of ``models.cnn``).
+
+Both take DTensors too (a step on a ``DeviceMesh``, the counterpart of a
+``jax.jit`` under a mesh's shardings; ``launch.steps.StepBundle.lower``):
+a buffer is then a DTensor whose local shard is its own storage, placed
+as the tensor it holds; loads and copies go local shard to local shard,
+and a leaf placed otherwise than its buffer is refused, so that no
+redistribution (a collective) hides in a copy.  The step's own
+collectives, DTensor's and ``sharding.collectives``', are captured with
+it.
 """
 from __future__ import annotations
 
@@ -22,19 +31,6 @@ from repro_torch.sharding.spec import is_dtensor
 from repro_torch.tree import tree_flatten, tree_leaves
 
 
-def refuse_dtensors(owner: str, **trees) -> None:
-    """``TypeError`` if any leaf of ``trees`` is a DTensor: a step on a
-    mesh runs eagerly."""
-    for name, tree in trees.items():
-        for leaf in tree_leaves(_as_tree(tree)):
-            if is_dtensor(leaf):
-                raise TypeError(
-                    f"{owner} captures plain tensors; the {name} hold a "
-                    f"DTensor {tuple(leaf.shape)} placed "
-                    f"{tuple(leaf.placements)} (a step on a mesh runs "
-                    f"eagerly)")
-
-
 class Capture:
     """One function's CUDA graph on ``device``.
 
@@ -44,11 +40,12 @@ class Capture:
     does both.  :meth:`replay` replays the graph and adds the launches the
     capture recorded to their wrappers' counts.  A capture that fails
     raises.  ``capture_s`` and ``instantiate_s``: the host seconds of the
-    capture and of the graph's instantiation."""
+    capture and of the graph's instantiation.  Its captures check CUDA's
+    unsafe calls in this thread alone (``thread_local``): another thread
+    may use the card meanwhile (NCCL's watchdog, a fabric's workers)."""
 
-    def __init__(self, device, *, error_mode: str = "global"):
+    def __init__(self, device):
         self.device = torch.device(device)
-        self.error_mode = error_mode
         self.graph = None
         self.stream = torch.cuda.Stream(self.device)
         self.per_replay: dict = {}
@@ -71,7 +68,7 @@ class Capture:
         graph = torch.cuda.CUDAGraph()
         with build.capturing() as launched, torch.cuda.graph(
                 graph, stream=self.stream,
-                capture_error_mode=self.error_mode):
+                capture_error_mode="thread_local"):
             t0 = time.perf_counter()
             captured = body()
             t1 = time.perf_counter()
@@ -89,7 +86,7 @@ class Capture:
         ``pairs``, captured on this capture's stream."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self.stream,
-                              capture_error_mode=self.error_mode):
+                              capture_error_mode="thread_local"):
             for dst, src in pairs:
                 dst.copy_(src)
         return graph
@@ -112,18 +109,66 @@ def _leaves(x) -> list:
     return tree_leaves(_as_tree(x))
 
 
+def local(x):
+    """A DTensor's local shard; any other tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _placing(x) -> str:
+    return str(tuple(x.placements)) if is_dtensor(x) else "plain"
+
+
+def check_placed_as(buf, x, what: str) -> None:
+    """``ValueError`` naming ``what`` unless ``x`` has ``buf``'s shape and
+    dtype and is placed as ``buf`` is: both plain, or DTensors on the
+    same mesh with the same placements.  A runner copies local shard to
+    local shard and never across placements, which would redistribute (a
+    collective) inside the copy."""
+    if x.shape != buf.shape or x.dtype != buf.dtype:
+        raise ValueError(f"{what}: {tuple(x.shape)} {x.dtype} for a buffer "
+                         f"{tuple(buf.shape)} {buf.dtype}")
+    if is_dtensor(x) != is_dtensor(buf) or is_dtensor(x) and (
+            x.device_mesh != buf.device_mesh
+            or tuple(x.placements) != tuple(buf.placements)):
+        raise ValueError(f"{what}: placed {_placing(x)} for a buffer placed "
+                         f"{_placing(buf)}; a runner never copies across "
+                         f"placements (place it before the call)")
+
+
+def buffer_of(x):
+    """A buffer of its own holding ``x``: a contiguous clone, and for a
+    DTensor its local shard cloned and placed as ``x`` is."""
+    if not is_dtensor(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for size in reversed(x.shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(
+        x.to_local().clone(memory_format=torch.contiguous_format),
+        x.device_mesh, x.placements, run_check=False, shape=x.shape,
+        stride=tuple(stride))
+
+
+def on_mesh(*trees) -> bool:
+    """Whether any leaf of ``trees`` is a DTensor."""
+    return any(is_dtensor(x) for t in trees for x in _leaves(t))
+
+
 def _own_buffers(state, taken=()):
     """``state`` with every tensor leaf a buffer of its own: a leaf whose
-    storage an earlier leaf, or a tensor of ``taken``, already uses is
-    cloned."""
+    storage (a DTensor's local shard's) an earlier leaf, or a tensor of
+    ``taken``, already uses is cloned (:func:`buffer_of`)."""
     leaves, tdef = tree_flatten(_as_tree(state))
-    seen = {x.untyped_storage().data_ptr() for x in taken if x.numel()}
+    seen = {local(x).untyped_storage().data_ptr() for x in taken
+            if x.numel()}
     out = []
     for x in leaves:
         if isinstance(x, torch.Tensor) and x.numel():
-            key = x.untyped_storage().data_ptr()
+            key = local(x).untyped_storage().data_ptr()
             if key in seen:
-                x = x.clone()
+                x = buffer_of(x)
             seen.add(key)
         out.append(x)
     tree = tdef.unflatten(out)
@@ -159,17 +204,21 @@ class StepGraph:
     the capture records are added to their wrappers' counts at each
     replay.  A capture that fails raises: nothing falls back to an eager
     loop.  On the CPU every call runs ``fn`` eagerly on the same buffers.
-    A DTensor state or input is refused with ``TypeError``.
-    ``error_mode``: the capture's ``capture_error_mode`` (``thread_local``
-    where other threads may use the card while it captures)."""
+
+    On a mesh (DTensor leaves: ``launch.steps.StepBundle.lower``) each
+    buffer is a DTensor placed as its leaf, with a local shard of its own;
+    the inputs come placed (placing them, a redistribution, stays outside
+    the graph) and load local shard to local shard, and a new-state leaf
+    placed otherwise than its buffer raises ``ValueError``.  ``fn`` enters
+    whatever contexts it needs (the bundle's ``ShardCtx``) itself, in the
+    eager call and in the capture; a replay runs no Python."""
 
     #: the capture a runner on the card makes (a test may put a stand-in
     #: in its place, with ``graphed`` set, to run the graph route's
     #: bookkeeping on the CPU)
     capture_type = Capture
 
-    def __init__(self, fn, state, *, device=None, error_mode="global"):
-        refuse_dtensors("StepGraph", state=state)
+    def __init__(self, fn, state, *, device=None):
         leaves = [x for x in _leaves(state) if isinstance(x, torch.Tensor)]
         if device is None:
             if not leaves:
@@ -184,7 +233,7 @@ class StepGraph:
         if elsewhere:
             raise ValueError(f"a StepGraph on {self.device} keeps its state "
                              f"there; leaves are on {elsewhere}")
-        self.fn, self.error_mode = fn, error_mode
+        self.fn = fn
         self.graphed = self.device.type == "cuda"
         self.state = _own_buffers(state)
         self.inputs = None
@@ -202,15 +251,16 @@ class StepGraph:
             raise ValueError("the step's new state has another structure "
                              "than its state")
         pairs = []
-        for s, n in zip(want, got):
+        for i, (s, n) in enumerate(zip(want, got)):
             if not isinstance(s, torch.Tensor):
                 continue
-            if n.shape != s.shape or n.dtype != s.dtype:
-                raise ValueError(f"a new state leaf {tuple(n.shape)} "
-                                 f"{n.dtype} for a buffer {tuple(s.shape)} "
-                                 f"{s.dtype}")
+            try:
+                check_placed_as(s, n, "the new state leaf")
+            except ValueError as e:
+                raise ValueError(f"{e} (at {_paths(want_def, len(want))[i]})"
+                                 ) from None
             if n is not s:
-                pairs.append((s, n))
+                pairs.append((local(s), local(n)))
         return pairs
 
     def _advance(self) -> None:
@@ -226,20 +276,16 @@ class StepGraph:
 
     def _load(self, inputs) -> None:
         if self.inputs is None:
-            refuse_dtensors("StepGraph", inputs=inputs)
             self.inputs = tree_flatten(inputs)[1].unflatten(
-                [x.to(self.device).clone(
-                    memory_format=torch.contiguous_format)
+                [buffer_of(x if is_dtensor(x) else x.to(self.device))
                  for x in tree_leaves(inputs)])
             return
         bufs, tdef = tree_flatten(self.inputs)
         new = tdef.flatten_up_to(inputs)
         for b, x in zip(bufs, new):
-            if x.shape != b.shape or x.dtype != b.dtype:
-                raise ValueError(f"a StepGraph replays one input shape: "
-                                 f"{tuple(x.shape)} {x.dtype} for "
-                                 f"{tuple(b.shape)} {b.dtype}")
-            b.copy_(x)
+            check_placed_as(b, x, "a StepGraph replays one input shape and "
+                            "placing")
+            local(b).copy_(local(x))
 
     def _body(self):
         return self.fn(self.state, self.inputs)
@@ -250,8 +296,7 @@ class StepGraph:
         if not self.graphed:
             self.new, self.out = self._body()
         elif self.capture is None:
-            self.capture = self.capture_type(self.device,
-                                             error_mode=self.error_mode)
+            self.capture = self.capture_type(self.device)
             new, self.out = self.capture.warm(self._body)
             self._pairs(new)
             self.state = self.new = _own_buffers(
@@ -272,4 +317,15 @@ class StepGraph:
         return self.capture.per_replay if self.capture else {}
 
 
-__all__ = ["Capture", "StepGraph", "refuse_dtensors"]
+def _paths(tdef, n: int) -> list:
+    """A name for each of the ``n`` leaves of a flattened tree: its keys
+    and indices, joined."""
+    from torch.utils._pytree import keystr, tree_flatten_with_path
+    names = {i: keystr(path) for path, i in
+             tree_flatten_with_path(tdef.unflatten(range(n)))[0]
+             if isinstance(i, int)}
+    return [names.get(i, f"leaf {i}") for i in range(n)]
+
+
+__all__ = ["Capture", "StepGraph", "buffer_of", "check_placed_as", "local",
+           "on_mesh"]

@@ -167,6 +167,32 @@ def _storage_key(t: torch.Tensor):
         return None
 
 
+class CollectiveCalls(TorchDispatchMode):
+    """Counts the calls of ``torch.distributed``'s collectives
+    (``_c10d_functional`` and ``c10d`` ops, by the JAX package's kinds)
+    made under it, DTensor's redistributions and the port's own
+    (``sharding.collectives``) alike: ``calls`` ({kind: calls}).  An op on
+    a DTensor is left to DTensor, whose collectives on the local shards
+    come back through the mode.  Around a CUDA graph's capture it counts
+    the collectives the graph records, where a one-rank collective may
+    launch no kernel to see in a trace."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.distributed.tensor import DTensor
+        self._dtensor = DTensor
+        self.calls: Counter = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        name = func.__name__.split(".")[0]
+        if func.namespace in ("_c10d_functional", "c10d") \
+                and name in _COLLECTIVES:
+            self.calls[_COLLECTIVES[name]] += 1
+        return func(*args, **(kwargs or {}))
+
+
 class Accounting(TorchDispatchMode):
     """Counts what one rank's step does (see the module docstring).  Use
     as a context manager around the step; :meth:`counts` reads it."""
@@ -334,5 +360,5 @@ def roofline_from_counts(counts: dict, chips: int, *,
                     compute_dtype=compute_dtype)
 
 
-__all__ = ["Accounting", "CollectiveStats", "HBM_BW", "LINK_BW",
-           "PEAK_FLOPS", "Roofline", "roofline_from_counts"]
+__all__ = ["Accounting", "CollectiveCalls", "CollectiveStats", "HBM_BW",
+           "LINK_BW", "PEAK_FLOPS", "Roofline", "roofline_from_counts"]

@@ -14,6 +14,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -21,9 +22,10 @@ import torch
 
 from repro_torch.configs.base import get_arch_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.graphs import Capture, refuse_dtensors
+from repro_torch.launch.graphs import (Capture, buffer_of, check_placed_as,
+                                       local, on_mesh)
 from repro_torch.models.model import build_model
-from repro_torch.sharding.spec import values_tree
+from repro_torch.sharding.spec import is_dtensor, values_tree
 from repro_torch.tree import tree_leaves
 
 
@@ -50,28 +52,47 @@ class DecodeGraph:
     replay, so the counts are the eager loop's.  A capture that fails
     raises: nothing falls back to an eager loop.  On the CPU, where no
     graph exists, every step runs the
-    same function on the same buffers eagerly.  Parameters or a cache on
-    a mesh (DTensors) are refused with ``TypeError``: mesh decode runs
-    eagerly (``launch.steps.build_decode_step``).
+    same function on the same buffers eagerly.
+
+    On a mesh (``launch.steps.StepBundle.lower`` of a decode bundle) the
+    parameters and the cache are DTensors, placed once; the cache's local
+    shards are written in place as the plain cache is, the index is the
+    same plain 0-d buffer (``models.layers.write_row``), and ``token``,
+    an example token placed as every token will be, makes the token
+    buffer a DTensor placed alike: each token loads local shard to local
+    shard, and a token or a new cache leaf placed otherwise than its
+    buffer raises ``ValueError``.  ``context`` (a function returning a
+    context manager: the bundle's ``ShardCtx``) is entered around the
+    step in the eager call and in the capture; a replay runs no Python.
 
     The prefill is not captured: a graph of a call made once a
     ``generate`` would be replayed never."""
 
-    def __init__(self, api, params, cache, batch: int):
-        refuse_dtensors("DecodeGraph", params=params, cache=cache)
+    #: the capture a runner on the card makes (a test may put a stand-in
+    #: in its place, with ``graphed`` set)
+    capture_type = Capture
+
+    def __init__(self, api, params, cache, batch: int, *, token=None,
+                 context=None):
         self.device = tree_leaves(cache)[0].device
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"no decode graph for device {self.device}")
         self.api, self.params, self.cache = api, params, cache
-        self.token = torch.zeros((batch, 1), dtype=torch.int32,
-                                 device=self.device)
+        self.mesh = on_mesh(params, cache)
+        self.token = (torch.zeros((batch, 1), dtype=torch.int32,
+                                  device=self.device)
+                      if token is None else buffer_of(token))
         self.index = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.context = context or contextlib.nullcontext
+        self.graphed = self.device.type == "cuda"
         self.fresh = {}
         self.logits = None           # the graph's output buffer
         self.capture = None          # graphs.Capture, once captured
 
     def _load(self, token, index) -> None:
-        self.token.copy_(token)
+        if is_dtensor(self.token) or is_dtensor(token):
+            check_placed_as(self.token, token, "a decode token")
+        local(self.token).copy_(local(token))
         if isinstance(index, torch.Tensor):
             self.index.copy_(index)
         else:
@@ -80,17 +101,21 @@ class DecodeGraph:
     def _body(self):
         """One decode step on the buffers: the last step's new leaves into
         the cache, the step, its new leaves into ``fresh``."""
-        for key, new in self.fresh.items():
-            self.cache[key].copy_(new)
-        logits, cache = self.api.decode_step(self.params, self.cache,
-                                             self.token, self.index)
-        for key, leaf in cache.items():
-            if leaf is self.cache[key]:
-                continue
-            if key in self.fresh:
-                self.fresh[key].copy_(leaf)
-            else:
-                self.fresh[key] = leaf
+        with self.context():
+            for key, new in self.fresh.items():
+                local(self.cache[key]).copy_(local(new))
+            logits, cache = self.api.decode_step(self.params, self.cache,
+                                                 self.token, self.index)
+            for key, leaf in cache.items():
+                if leaf is self.cache[key]:
+                    continue
+                if self.mesh:
+                    check_placed_as(self.cache[key], leaf,
+                                    f"the new cache leaf {key!r}")
+                if key in self.fresh:
+                    local(self.fresh[key]).copy_(local(leaf))
+                else:
+                    self.fresh[key] = leaf
         return logits
 
     def step(self, token, index):
@@ -98,14 +123,20 @@ class DecodeGraph:
         (an int or a 0-d int32 tensor).  After a replay they are the
         graph's output buffer, which the next step overwrites."""
         self._load(token, index)
-        if self.device.type == "cpu":
+        if not self.graphed:
             return self._body()
         if self.capture is None:
-            self.capture = Capture(self.device)
+            self.capture = self.capture_type(self.device)
             logits, self.logits = self.capture.first(self._body)
             return logits
         self.capture.replay()
         return self.logits
+
+    def new_cache(self) -> dict:
+        """The cache after the last step: each leaf the step hands back
+        anew is its ``fresh`` buffer (the cache's own holds the step
+        before until the next step copies it in)."""
+        return dict(self.cache, **self.fresh)
 
     @property
     def per_replay(self) -> dict:

@@ -14,8 +14,15 @@ itself (positions, masks, zeros) count as replicated
 a sharded step gives its unsharded step's numbers, up to the order of
 floating-point sums.
 
-:meth:`StepBundle.account` is the counterpart of the JAX bundles'
-``.lower()`` and XLA's analyses: it runs the step once under
+:meth:`StepBundle.lower` is the counterpart of the JAX bundles'
+``.lower()`` (``jax.jit`` with the bundle's shardings, the state
+donated): a runner that places its arguments outside the step and replays
+the training or decode step on the mesh as one CUDA graph
+(``launch.graphs.StepGraph``, ``launch.serve.DecodeGraph``), DTensor's
+dispatch and the collectives captured with it.
+
+:meth:`StepBundle.account` is the counterpart of ``.lower()``'s analyses
+(XLA's cost and memory analyses): it runs the step once under
 ``launch.hlo_analysis.Accounting`` and returns one rank's FLOPs, bytes,
 collectives, kernel launches and memory.  Given no arguments it runs on
 the bundle's ``args_spec``, placed as DTensors of meta tensors (rank 0's
@@ -25,6 +32,7 @@ a real step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 from dataclasses import dataclass
@@ -35,6 +43,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.core.split_parallel import (TrainState, init_prev_features,
                                              make_train_step, split_params)
+from repro_torch.launch.graphs import StepGraph
+from repro_torch.launch.serve import DecodeGraph
 from repro_torch.models.model import build_model
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding.rules import rules_for_strategy
@@ -344,10 +354,13 @@ class StepBundle:
     ``fn`` is the eager step on its arguments; ``args_spec`` holds
     example arguments (on the meta device: shapes and dtypes alone) and
     ``in_placements`` the placement tree of each.  Calling the bundle
-    places its arguments (:meth:`place`) and runs ``fn`` under the run's
-    :class:`ShardCtx`; :meth:`account` runs it once under the accounting
-    mode.  ``init`` (train) makes the initial state:
-    ``init(generator=None, *, params=None, batch=None)``."""
+    places its arguments (:meth:`place`) and runs ``fn`` eagerly under
+    the run's :class:`ShardCtx` (:meth:`context`); :meth:`lower` makes
+    its compiled runner; :meth:`account` runs it once under the
+    accounting mode.  ``init`` (train) makes the initial state:
+    ``init(generator=None, *, params=None, batch=None)``.  ``lowered``:
+    the runner class :meth:`lower` makes (set by ``build_train_step``,
+    ``build_prefill_step`` and ``build_decode_step``)."""
 
     fn: Callable
     args_spec: tuple
@@ -357,21 +370,64 @@ class StepBundle:
     api: Any
     cfg: ArchConfig
     init: Optional[Callable] = None
+    lowered: Optional[Callable] = None
 
     def place(self, *args) -> tuple:
         """Every tensor leaf of ``args`` as a DTensor placed by its spec."""
         return tuple(place(a, pl, self.mesh)
                      for a, pl in zip(args, self.in_placements))
 
-    def _run(self, args, kw):
+    @contextlib.contextmanager
+    def context(self):
+        """The contexts the step runs under: the run's :class:`ShardCtx`,
+        and ``implicit_replication`` (tensors the model makes itself count
+        as replicated)."""
         from torch.distributed.tensor.experimental import \
             implicit_replication
         with use_shard_ctx(ShardCtx(self.mesh, self.rules)), \
                 implicit_replication():
+            yield
+
+    def _run(self, args, kw):
+        with self.context():
             return self.fn(*args, **kw)
 
     def __call__(self, *args, **kw):
         return self._run(self.place(*args), kw)
+
+    def lower(self):
+        """The step compiled as the JAX bundles' ``.lower()`` compiles it
+        (``jax.jit(fn, in_shardings=..., donate_argnums=(0,))`` under the
+        bundle's mesh): a runner called as the bundle is, which places its
+        arguments (:meth:`place`) outside the step and runs ``fn`` under
+        :meth:`context`.
+
+        * train: ``runner(state, batch) -> (state, metrics)`` through a
+          ``launch.graphs.StepGraph`` of the placed state;
+        * decode: ``runner(params, cache, token, index) -> (logits,
+          cache)`` through a ``launch.serve.DecodeGraph``, the parameters
+          and the cache placed once, the token and the index loaded at
+          each call;
+        * prefill: ``runner(params, batch, **kw)``, the parameters placed
+          once and the step run eagerly (a one-shot prefill is not
+          captured, as off the mesh).
+
+        On ``cuda`` the first call of a train or decode runner runs the
+        step eagerly on the capture stream; the step is captured as a
+        CUDA graph (NCCL's collectives inside; ``thread_local`` capture
+        errors, beside NCCL's watchdog thread) at the second call (train:
+        the first call's new state becomes the buffers) or right after
+        the first (decode, as ``DecodeGraph`` does off the mesh), and
+        every later call is a replay; on the CPU every call runs eagerly
+        on the same buffers.  A capture that fails raises: nothing falls
+        back to the eager bundle call.  A call whose state (train) or
+        parameters and cache (decode) are not the ones the runner handed
+        back last starts a new graph from them.  The state (train) and the
+        cache (decode) are donated, as JAX's ``donate_argnums=(0,)``
+        donates the state: the runner's buffers are the placed arguments'
+        own tensors (the caller's, where they came placed), which the
+        steps then overwrite."""
+        return self.lowered(self)
 
     def account(self, *args, **kw) -> dict:
         """Run the step once under ``launch.hlo_analysis.Accounting`` and
@@ -409,6 +465,63 @@ class StepBundle:
                       peak_bytes=arg_bytes + counts["temp_bytes"],
                       launches={k: after[k] - before[k] for k in after})
         return counts
+
+
+class _LoweredTrain:
+    """:meth:`StepBundle.lower` of a training bundle."""
+
+    def __init__(self, bundle: StepBundle):
+        self.bundle = bundle
+        self.graph = None                # the StepGraph of the held state
+        self._last = None                # the state it handed back last
+
+    def __call__(self, state, batch):
+        b = self.bundle
+        if self.graph is None or state is not self._last:
+            placed, = b.place(state)
+            self.graph = StepGraph(lambda st, bt: b._run((st, bt), {}),
+                                   placed)
+        new, out = self.graph(place(batch, b.in_placements[1], b.mesh))
+        self._last = new
+        return new, out
+
+
+class _LoweredDecode:
+    """:meth:`StepBundle.lower` of a decode bundle."""
+
+    def __init__(self, bundle: StepBundle):
+        self.bundle = bundle
+        self.graph = None                # the DecodeGraph of the held cache
+        self._params = self._cache = None
+
+    def __call__(self, params, cache, token, index):
+        b = self.bundle
+        if (self.graph is None or params is not self._params
+                or cache is not self._cache):
+            p, c, t = b.place(params, cache, token)
+            self.graph = DecodeGraph(b.api, p, c, token.shape[0], token=t,
+                                     context=b.context)
+            self._params = params
+        logits = self.graph.step(place(token, b.in_placements[2], b.mesh),
+                                 index)
+        self._cache = self.graph.new_cache()
+        return logits, self._cache
+
+
+class _LoweredPrefill:
+    """:meth:`StepBundle.lower` of a prefill bundle: eager."""
+
+    def __init__(self, bundle: StepBundle):
+        self.bundle = bundle
+        self._params = self._placed = None
+
+    def __call__(self, params, batch, **kw):
+        b = self.bundle
+        if self._placed is None or params is not self._params:
+            self._placed, = b.place(params)
+            self._params = params
+        return b._run((self._placed, place(batch, b.in_placements[1],
+                                           b.mesh)), kw)
 
 
 def _locals(x) -> list:
@@ -507,7 +620,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
     in_pl = (placement_tree(st_axes, state_spec, rules, mesh),
              placement_tree(batch_axes(batch_spec), batch_spec, rules, mesh))
     return StepBundle(step_fn, (state_spec, batch_spec), in_pl, rules, mesh,
-                      api, api.cfg, init=init_all)
+                      api, api.cfg, init=init_all, lowered=_LoweredTrain)
 
 
 def build_prefill_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
@@ -535,7 +648,7 @@ def build_prefill_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
         return api.prefill(params, batch, full=full, **kw)
 
     return StepBundle(fn, (params_spec, batch_spec), in_pl, rules, mesh,
-                      api, cfg)
+                      api, cfg, lowered=_LoweredPrefill)
 
 
 def build_decode_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
@@ -564,7 +677,7 @@ def build_decode_step(cfg: ArchConfig, run: RunConfig, shape: InputShape,
         return api.decode_step(params, cache, token, index)
 
     return StepBundle(fn, (params_spec, cache_spec, token_spec, 0), in_pl,
-                      rules, mesh, api, cfg)
+                      rules, mesh, api, cfg, lowered=_LoweredDecode)
 
 
 def build_step(cfg: ArchConfig, run: RunConfig, shape: InputShape, mesh,

@@ -76,8 +76,13 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     ``mesh`` (a ``DeviceMesh`` on ``device``'s type, e.g.
     ``make_local_mesh``): every rank makes the same init and batches, and
     ``build_train_step`` wraps the same step to place the state and each
-    batch on the mesh by the run's rules; the step runs eagerly, and the
-    returned state is of DTensors.
+    batch on the mesh by the run's rules; the step runs through the
+    bundle's ``lower()``, the counterpart of the JAX loop's ``jax.jit``
+    under ``use_shard_ctx``: on the card the first step runs eagerly and
+    every later one is a replay of one CUDA graph of the step on the mesh
+    (DTensor's dispatch and the NCCL collectives captured, K2 on the
+    local shards inside); on the CPU (gloo) each step runs eagerly on the
+    runner's buffers.  The returned state is of DTensors.
     Only rank 0 logs and writes the checkpoint, gathered whole on every
     rank."""
     dev = resolve_device(device)
@@ -111,15 +116,18 @@ def train_loop(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     generator.manual_seed(run.seed)
     first = batch_at(0)
     state = init_all(generator, batch=first)
-    runner = StepGraph(step_fn, state) if mesh is None else None
+    if mesh is None:
+        graph = StepGraph(step_fn, state)
+
+        def runner(_, b):
+            return graph(b)
+    else:
+        runner = step_fn.lower()
     losses = []
     t0 = time.time()
     for i in range(steps):
         b = first if i == 0 else batch_at(i)
-        if runner is not None:
-            state, metrics = runner(b)
-        else:
-            state, metrics = step_fn(state, b)
+        state, metrics = runner(state, b)
         loss = float(_whole(metrics["loss"]))
         losses.append(loss)
         if (i % log_every == 0 or i == steps - 1) and _rank() == 0:

@@ -157,8 +157,7 @@ def loss_and_grads(ccfg: CNNConfig):
                     for x in tree_leaves(inputs))
         with lock:
             if key not in graphs:
-                graphs[key] = StepGraph(step, (), device=device,
-                                        error_mode="thread_local")
+                graphs[key] = StepGraph(step, (), device=device)
             _, (loss, grads) = graphs[key](inputs)
             return loss.clone(), tree_map(torch.clone, grads)
 

@@ -161,9 +161,9 @@ def decode_index(index, like):
     filled into a new one (a fill, no upload); a tensor, which must be
     0-d and int32 on that device, is used as it is, so a CUDA graph that
     captured the step reads whatever its index buffer holds at each
-    replay.  Beside a DTensor ``like`` (a cache on a mesh, whose decode
-    runs eagerly) a host int stays an int: the sharded cache writes take
-    host rows (:func:`write_rows`)."""
+    replay.  Beside a DTensor ``like`` (a cache on a mesh) it is a plain
+    tensor too, the same on every rank: each rank writes its own shard of
+    the cache at it with tensor ops (:func:`write_row`)."""
     if isinstance(index, torch.Tensor):
         if (index.dim() or index.dtype != torch.int32
                 or index.device != like.device):
@@ -171,8 +171,6 @@ def decode_index(index, like):
                 f"a decode index tensor must be 0-d int32 on {like.device}, "
                 f"got {tuple(index.shape)} {index.dtype} on {index.device}")
         return index
-    if is_dtensor(like):
-        return int(index)
     return torch.full((), index, dtype=torch.int32, device=like.device)
 
 
@@ -357,8 +355,9 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
         buffer (sliding window) stays correct.  The new k, v and position
         are written into the cache tensors in place (the JAX package
         returns updated copies); the same tensors are returned.  A cache
-        on a mesh (DTensor) takes a host int: each rank writes the rows
-        of its own shard (:func:`write_rows`), eagerly.
+        on a mesh (DTensor) takes the same tensor index: each rank writes
+        its own shard of the sequence (:func:`write_row`), so a graph of
+        the step on a mesh replays at any index too.
       * cross-attention decode: ``cache = (k, v)``, the encoder's K/V of
         the prefill, read and returned unchanged.
     """
@@ -380,27 +379,17 @@ def attention(p, cfg, x, *, positions, causal: bool = True, window: int = 0,
     if cache is not None:
         ck, cv, kv_pos = cache
         s_cache = ck.shape[1]
-        if is_dtensor(ck):             # each rank writes its own shard
-            i = int(cache_index)
-            pos1 = torch.full((1,), i, dtype=torch.int32, device=x.device)
-            slot = i % s_cache if window else min(i, s_cache - 1)
-        else:
-            i = decode_index(cache_index, ck)
-            pos1 = i.reshape(1)
-            slot = (torch.remainder(i, s_cache) if window
-                    else i.clamp(max=s_cache - 1)).reshape(1).long()
+        i = decode_index(cache_index, ck)
+        pos1 = i.reshape(1)
+        slot = (torch.remainder(i, s_cache) if window
+                else i.clamp(max=s_cache - 1)).reshape(1).long()
         if use_rope:
             cos, sin = rope_cos_sin(pos1, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-        if is_dtensor(ck):
-            write_rows(ck, 1, slot, k)
-            write_rows(cv, 1, slot, v)
-            write_rows(kv_pos, 0, slot, pos1.to(kv_pos.dtype))
-        else:
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
-            kv_pos.index_copy_(0, slot, pos1.to(kv_pos.dtype))
+        write_row(ck, 1, slot, k)
+        write_row(cv, 1, slot, v)
+        write_row(kv_pos, 0, slot, pos1)
         m = (kv_pos >= 0) & (kv_pos <= i)
         if window:
             m = m & (kv_pos > i - window)
@@ -498,6 +487,17 @@ def prefill_slots(positions, size: int) -> tuple:
     return positions, range(s)
 
 
+def _src_local(dst, dim: int, src):
+    """``src``'s local shard placed as DTensor ``dst`` is, whole along
+    ``dim`` (a plain ``src``, the same on every rank, is split locally)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if q == Shard(dim) else q for q in dst.placements)
+    if is_dtensor(src):
+        return src.redistribute(mesh, pl).to_local()
+    return distribute_tensor(src, mesh, pl, src_data_rank=None).to_local()
+
+
 def write_rows(dst, dim: int, rows, src) -> None:
     """``dst`` along ``dim`` at the rows ``rows`` (an int, a ``range`` of
     step 1, or a sequence of ints: host values) takes ``src`` (``dst``'s
@@ -506,7 +506,8 @@ def write_rows(dst, dim: int, rows, src) -> None:
     ``dim`` into its local tensor (DTensor has no in-place rule for an
     indexed write into a sharded dimension); ``src`` is first placed as
     ``dst`` is, whole along ``dim``.  A plain ``dst`` takes a slice for an
-    int or a range: no index tensor to upload."""
+    int or a range: no index tensor to upload.  The prefill's writes: a
+    decode step's, at a device index, are :func:`write_row`'s."""
     if isinstance(rows, int):
         rows = range(rows, rows + 1)
     if not is_dtensor(dst):
@@ -515,13 +516,7 @@ def write_rows(dst, dim: int, rows, src) -> None:
                                                    device=dst.device))
         dst[(slice(None),) * dim + (at,)] = src.to(dst.dtype)
         return
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-    mesh = dst.device_mesh
-    pl = tuple(Replicate() if q == Shard(dim) else q for q in dst.placements)
-    if is_dtensor(src):
-        src = src.redistribute(mesh, pl).to_local()
-    else:
-        src = distribute_tensor(src, mesh, pl, src_data_rank=None).to_local()
+    src = _src_local(dst, dim, src)
     local = dst.to_local()
     lo = shard_offset(dst, dim)
     hi = lo + local.shape[dim]
@@ -531,6 +526,30 @@ def write_rows(dst, dim: int, rows, src) -> None:
         local.index_copy_(dim, torch.tensor([rows[i] - lo for i in sel],
                                             device=local.device),
                           src.index_select(dim, index).to(local.dtype))
+
+
+def write_row(dst, dim: int, slot, src) -> None:
+    """``dst`` along ``dim`` at row ``slot`` (a 1-element int64 tensor on
+    ``dst``'s device, never read on the host) takes ``src`` (``dst``'s
+    shape with 1 along ``dim``), in place: a decode step's cache write.
+    For a DTensor ``dst`` each rank writes its own shard, with ``src``
+    placed as :func:`write_rows` places it: at ``slot - lo`` clamped into
+    the shard (``lo``: where the shard starts, a shape), the new row where
+    the slot falls in the shard and the row already there where it does
+    not (a select of the same values), so every rank's write is the same
+    ops whatever the slot, and a CUDA graph of the step replays at any."""
+    if not is_dtensor(dst):
+        dst.index_copy_(dim, slot, src.to(dst.dtype))
+        return
+    src = _src_local(dst, dim, src).to(dst.dtype)
+    local = dst.to_local()
+    n = local.shape[dim]
+    at = slot - shard_offset(dst, dim)
+    inside = ((at >= 0) & (at < n)).reshape(
+        [-1 if d == dim else 1 for d in range(local.dim())])
+    at = at.clamp(0, n - 1)
+    local.index_copy_(dim, at, torch.where(inside, src,
+                                           local.index_select(dim, at)))
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,9 @@ What is held:
   planted fault (the sum over ``model`` left out) must fail.
 * ``FusedServerStep(mesh=)`` over 2 and 4 ranks bitwise equal to one
   rank, with n not a multiple of ranks x the row pitch.
-* every kernel wrapper, and the decode graph runner, refuses a DTensor.
+* every kernel wrapper refuses a DTensor; the decode graph runner adopts
+  a DTensor cache (the decode bundle's ``lower()``), equal to the
+  bundle's eager step bit for bit.
 * the embedding lookup and the cross-entropy, whole and vocab-chunked,
   keep the vocab sharded on a 2x2 mesh under ``fsdp_tp`` (half the vocab
   a rank), within 1e-5 of the plain ones forward and backward; their planted fault (the lookup's sum
@@ -673,13 +675,16 @@ def test_every_kernel_wrapper_refuses_a_dtensor(world_2x2):
 
 
 def test_the_decode_graph_refuses_a_dtensor(world_2x2):
-    """``launch.serve.DecodeGraph`` captures plain tensors: DTensor
-    parameters or a DTensor cache are refused (mesh decode runs
-    eagerly)."""
+    """``launch.serve.DecodeGraph`` no longer refuses a DTensor: through
+    the decode bundle's ``lower()`` on the 2x2 mesh it adopts the placed
+    cache, each buffer (the token's too) a DTensor with the bundle's
+    placements and a local storage of its own, and one step equals the
+    bundle's eager call bit for bit, logits and cache."""
     got = world_2x2[("decode_graph",)]
-    assert set(got) == {"params", "cache"}
-    for name, msg in got.items():
-        assert msg and "DTensor" in msg and name in msg, (name, msg)
+    assert set(got["placements"]) == {"k", "v", "pos", "token"}
+    assert got["placements"] == got["want_placements"], got
+    assert got["own_storage"]
+    assert got["logits_equal"] and got["cache_equal"], got
 
 
 # --- 6. the vocab-parallel embedding and loss ---------------------------------

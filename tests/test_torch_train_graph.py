@@ -25,7 +25,9 @@ What is held, on smoke configs at f32 with weights from a seed:
 (d) ``StepGraph`` equals a plain loop of ``step_fn`` bit for bit, and a
     runner that never refreshes its batch buffer, or one whose
     ``prev_labels`` alias the batch buffer, departs from it;
-(e) a DTensor state is refused with ``TypeError``;
+(e) a DTensor state is adopted (the training bundle's ``lower()``): each
+    buffer placed as the bundle places it, with a local storage of its
+    own, and the step equal to the bundle's eager call bit for bit;
 (f) the CNN's ``loss_and_grads`` and the quickstart's step
     (``cnn.train_step``) through their runners equal their eager selves
     bit for bit and the JAX package's jitted counterparts within
@@ -330,7 +332,7 @@ class _ReplayedCapture:
     buffers, the capture at the second call, the copies before each
     replay) runs here."""
 
-    def __init__(self, device, *, error_mode):
+    def __init__(self, device):
         self.per_replay = {}
 
     def warm(self, body):
@@ -421,26 +423,64 @@ def test_runner_keeps_each_leaf_a_buffer_of_its_own():
 
 
 def test_a_dtensor_state_is_refused(tmp_path):
+    """A DTensor state is no longer refused: the training bundle's
+    ``lower()`` on a 1x1 gloo mesh (qwen3-4b's smoke config, fsdp_tp) adopts
+    the placed state in a ``StepGraph``, each buffer a DTensor with the
+    bundle's placements and a local storage of its own, and its step
+    equals the bundle's eager call bit for bit."""
     script = textwrap.dedent(f"""
-        import torch, torch.distributed as dist
-        from torch.distributed.tensor import Replicate, distribute_tensor
-        from repro_torch.launch.graphs import StepGraph
+        import numpy as np, torch, torch.distributed as dist
+        from repro_torch.configs import InputShape, RunConfig, get_smoke_config
+        from repro_torch.data import make_lm_batch
+        from repro_torch.launch.graphs import local
         from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.launch.steps import build_train_step
+        from repro_torch.sharding.spec import is_dtensor
+        from repro_torch.tree import tree_leaves
         dist.init_process_group("gloo", store=dist.FileStore(
             {str(tmp_path / "store")!r}, 1), rank=0, world_size=1)
         mesh = make_local_mesh(1, 1, device="cpu")
-        w = distribute_tensor(torch.ones(4, 4), mesh, (Replicate(),) * 2)
-        try:
-            StepGraph(lambda s, b: (s, None), {{"w": w}})
-        except TypeError as e:
-            print("refused:", e)
+        cfg = get_smoke_config("qwen3-4b")
+        bundle = build_train_step(
+            cfg, RunConfig(arch="qwen3-4b", strategy="fsdp_tp",
+                           learning_rate=0.05, compute_dtype="float32"),
+            InputShape("c", 16, 2, "train"), mesh)
+        batch = {{k: torch.from_numpy(v) for k, v in make_lm_batch(
+            np.random.default_rng(0), 2, 16, cfg.vocab_size).items()}}
+        init = lambda: bundle.init(torch.Generator().manual_seed(0))
+        runner = bundle.lower()
+        got, m_got = runner(init(), batch)
+        want, m_want = bundle(init(), batch)
+        bufs = [x for x in tree_leaves(vars(runner.graph.state))
+                if isinstance(x, torch.Tensor)]
+        placed, = bundle.place(bundle.args_spec[0])
+        pls = [tuple(x.placements) if is_dtensor(x) else None
+               for x in tree_leaves(vars(placed))
+               if isinstance(x, torch.Tensor)]
+        print("dtensors:", sum(map(is_dtensor, bufs)), len(bufs))
+        print("placed_as:", [tuple(x.placements) if is_dtensor(x) else None
+                             for x in bufs] == pls)
+        ptrs = [local(x).untyped_storage().data_ptr() for x in bufs
+                if x.numel()]
+        print("own_storage:", len(set(ptrs)) == len(ptrs))
+        whole = lambda x: x.full_tensor() if is_dtensor(x) else x
+        print("equal:", torch.equal(whole(m_got["loss"]),
+                                    whole(m_want["loss"])) and all(
+            torch.equal(whole(a), whole(b)) for a, b in zip(
+                tree_leaves(vars(got)), tree_leaves(vars(want)))))
         dist.destroy_process_group()
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "refused:" in out.stdout and "DTensor" in out.stdout, out.stdout
+    lines = dict(line.split(": ", 1) for line in out.stdout.splitlines()
+                 if ": " in line)
+    n_dt, n = map(int, lines["dtensors"].split())
+    assert n_dt > 0 and n_dt == n - 1, out.stdout     # all but the step
+    assert lines["placed_as"] == "True", out.stdout
+    assert lines["own_storage"] == "True", out.stdout
+    assert lines["equal"] == "True", out.stdout
 
 
 # --- (f) the CNN's two jitted steps ------------------------------------------

@@ -11,6 +11,7 @@ made on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -20,6 +21,7 @@ from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
@@ -29,7 +31,7 @@ from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models.model import params_from_numpy  # noqa: E402
 from repro_torch.sharding.spec import (ShardCtx, is_dtensor, placements,  # noqa: E402
                                        to_pspec, use_shard_ctx)
-from repro_torch.tree import tree_map, to_numpy  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, to_numpy  # noqa: E402
 
 
 def _mesh(shape):
@@ -306,29 +308,454 @@ def _refusals(job):
 
 
 def _decode_graph(job):
-    """``launch.serve.DecodeGraph`` given DTensor parameters, then a
-    DTensor cache: the message of the ``TypeError`` each raises (None
-    where one did not)."""
-    from torch.distributed.tensor import Replicate, distribute_tensor
-    from repro_torch.launch.serve import DecodeGraph
+    """``launch.serve.DecodeGraph`` adopting a DTensor cache, through the
+    decode bundle's ``lower()``: qwen3-4b's smoke config under fsdp_tp,
+    prefilled by the bundle, then one step of the runner beside one of the
+    bundle's eager call on a copy of the same cache.  Returns each buffer's
+    placements, whether its local storage is its own (no other buffer's),
+    and whether the logits and the cache equal the eager call's bit for
+    bit."""
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.launch.graphs import buffer_of, local
+    from repro_torch.sharding.spec import values_tree
+    cfg = get_smoke_config("qwen3-4b")
     mesh = job["mesh_obj"]
-    d = distribute_tensor(torch.zeros(4, 8), mesh,
-                          [Replicate()] * mesh.ndim, src_data_rank=None)
-    plain = {"w": torch.zeros(4, 8)}
+    b, s = 4, 12
+    run = RunConfig(arch="qwen3-4b", strategy="fsdp_tp",
+                    compute_dtype="float32")
+    pre = build_prefill_step(cfg, run, InputShape("p", s, b, "prefill"),
+                             mesh)
+    dec = build_decode_step(cfg, run, InputShape("d", s + 1, b, "decode"),
+                            mesh)
+    params = values_tree(pre.api.init(torch.Generator().manual_seed(0)))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32))
+    with torch.no_grad():
+        _, cache = pre(params, {"tokens": tokens}, cache_len=s + 1)
+        cache = _placed_cache(dec, cache)
+        twin = {k: buffer_of(v) for k, v in cache.items()}
+        tok = tokens[:, -1:]
+        runner = dec.lower()
+        got, got_cache = runner(params, cache, tok, s)
+        want, want_cache = dec(params, twin, tok, s)
+    graph = runner.graph
+    buffers = dict(graph.cache, token=graph.token)
+    ptrs = [local(v).untyped_storage().data_ptr() for v in buffers.values()]
+    return {
+        "placements": {k: str(tuple(v.placements)) if is_dtensor(v) else None
+                       for k, v in buffers.items()},
+        "want_placements": {
+            **{k: str(tuple(v)) for k, v in dec.in_placements[1].items()},
+            "token": str(tuple(dec.in_placements[2]))},
+        "own_storage": len(set(ptrs)) == len(ptrs),
+        "logits_equal": bool(torch.equal(_np_t(got), _np_t(want))),
+        "cache_equal": all(bool(torch.equal(_np_t(got_cache[k]),
+                                            _np_t(want_cache[k])))
+                           for k in want_cache)}
+
+
+def _placed_cache(dec, cache):
+    """A prefill's cache placed as the decode bundle places it."""
+    from repro_torch.launch.steps import place
+    return place(cache, dec.in_placements[1], dec.mesh)
+
+
+def _np_t(x):
+    """A leaf gathered whole, as a tensor."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+# --- tests/test_torch_mesh_graph.py -------------------------------------------
+
+
+def _parent_write_rows(dst, dim: int, rows, src) -> None:
+    """A copy of the sharded cache write the decode step made before its
+    index was a device value: host rows, each rank writing the ones in its
+    own shard (``models.layers.write_rows``' DTensor branch as it was)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.sharding.collectives import shard_offset
+    if isinstance(rows, int):
+        rows = range(rows, rows + 1)
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if q == Shard(dim) else q for q in dst.placements)
+    if is_dtensor(src):
+        src = src.redistribute(mesh, pl).to_local()
+    else:
+        src = distribute_tensor(src, mesh, pl, src_data_rank=None).to_local()
+    local = dst.to_local()
+    lo = shard_offset(dst, dim)
+    hi = lo + local.shape[dim]
+    sel = [i for i, r in enumerate(rows) if lo <= r < hi]
+    if sel:
+        index = torch.tensor(sel, device=local.device)
+        local.index_copy_(dim, torch.tensor([rows[i] - lo for i in sel],
+                                            device=local.device),
+                          src.index_select(dim, index).to(local.dtype))
+
+
+@contextlib.contextmanager
+def _parent_write():
+    """Within the block the decode step's sharded cache writes take the
+    planted host-int path: the slot read to the host (``int(slot)``, the
+    parent's ``int(cache_index)``), then :func:`_parent_write_rows`."""
+    from repro_torch.models import layers as L
+    real = L.write_row
+
+    def write_row(dst, dim, slot, src):
+        if not is_dtensor(dst):
+            return real(dst, dim, slot, src)
+        return _parent_write_rows(dst, dim, int(slot), src)
+
+    L.write_row = write_row
+    try:
+        yield
+    finally:
+        L.write_row = real
+
+
+def _graph_cfg(job):
+    cfg = _cfg(job)
+    if job.get("window"):
+        cfg = cfg.with_sliding_window(job["window"])
+    return cfg
+
+
+def _graph_bundles(job, cfg, mesh, prompt, cache_len, b):
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step)
+    run = RunConfig(arch=job["arch"], strategy="fsdp_tp",
+                    compute_dtype="float32", decode_layout=job["layout"])
+    pre = build_prefill_step(cfg, run, InputShape("p", prompt, b, "prefill"),
+                             mesh)
+    dec = build_decode_step(cfg, run, InputShape("d", cache_len, b,
+                                                 "decode"), mesh)
+    return pre, dec
+
+
+def _decode_write(job):
+    """(a) The decode step's sharded cache write at a device index against
+    the parent's host-int write: from one prefill, each index of
+    ``indices`` decoded once through the bundle's eager call, the same
+    token, on two copies of the cache, one of them written through
+    :func:`_parent_write`; the logits and every cache leaf compared bit
+    for bit after each step.  Then greedy decoding from the prefill at
+    the prompt's next positions, each step's logits returned."""
+    from repro_torch.launch.graphs import buffer_of
+    cfg = _graph_cfg(job)
+    mesh = job["mesh_obj"]
+    tokens = torch.from_numpy(job["tokens"])
+    b, s = tokens.shape
+    pre, dec = _graph_bundles(job, cfg, mesh, s, s + job["gen"], b)
+    params = params_from_numpy(cfg, job["params"], "cpu")
+    v = cfg.vocab_size
+    out = {"steps": [], "served": []}
+    with torch.no_grad():
+        logits, cache = pre(params, {"tokens": tokens},
+                            cache_len=s + job["gen"])
+        first = logits
+        cache = _placed_cache(dec, cache)
+        start = {k: buffer_of(x) for k, x in cache.items()}
+        mine = {k: buffer_of(x) for k, x in start.items()}
+        theirs = {k: buffer_of(x) for k, x in start.items()}
+        tok = tokens[:, -1:]
+        out["shard_rows"] = cache["pos"].to_local().shape[1]
+        out["cache_rows"] = cache["pos"].shape[1]
+        for i in job["indices"]:
+            got, mine = dec(params, mine, tok, i)
+            with _parent_write():
+                want, theirs = dec(params, theirs, tok, i)
+            out["steps"].append((i, bool(torch.equal(_np_t(got),
+                                                     _np_t(want))),
+                                 all(bool(torch.equal(_np_t(mine[k]),
+                                                      _np_t(theirs[k])))
+                                     for k in mine)))
+        logits, cache = first, start
+        out["served"].append(_np(logits))
+        for i in range(job["gen"]):
+            tok = torch.from_numpy(_np(logits)[:, -1, :v].argmax(-1)[:, None]
+                                   .astype(np.int32))
+            logits, cache = dec(params, cache, tok, s + i)
+            out["served"].append(_np(logits))
+    return out
+
+
+class _ReplayedCapture:
+    """A stand-in for ``graphs.Capture`` on the CPU that keeps what a CUDA
+    graph keeps: the captured call's outputs, which each replay rewrites
+    (local shard by local shard) by running the function again on the
+    same buffers; so a runner's graph-route bookkeeping runs here.  Its
+    capture runs the function for its outputs and then puts back what
+    the call wrote into the runner's buffers (a decode graph's cache and
+    new leaves), as a capture, which runs nothing, leaves them; it counts
+    the collective calls the function makes (``collectives``, by kind:
+    ``launch.hlo_analysis.CollectiveCalls``), as a graph records them."""
+
+    def __init__(self, device):
+        self.per_replay = {}
+        self.collectives = None
+
+    def warm(self, body):
+        return body()
+
+    def record(self, body):
+        from repro_torch.launch.graphs import local
+        runner = body.__self__
+        written = [local(t) for t in list(getattr(runner, "cache", {})
+                                          .values())
+                   + list(getattr(runner, "fresh", {}).values())]
+        from repro_torch.launch.hlo_analysis import CollectiveCalls
+        kept = [t.clone() for t in written]
+        with CollectiveCalls() as calls:
+            self.body, self.outs = body, body()
+        self.collectives = dict(calls.calls)
+        for t, k in zip(written, kept):
+            t.copy_(k)
+        return self.outs
+
+    def first(self, body):
+        return self.warm(body), self.record(body)
+
+    def copies(self, pairs):
+        import types
+        return types.SimpleNamespace(
+            replay=lambda: [dst.copy_(src) for dst, src in pairs])
+
+    def replay(self):
+        from repro_torch.launch.graphs import local
+        for out, new in zip(_out_leaves(self.outs),
+                            _out_leaves(self.body())):
+            local(out).copy_(local(new))
+
+
+def _out_leaves(outs) -> list:
+    from repro_torch.launch.graphs import _leaves
+    if isinstance(outs, tuple):
+        return [x for o in outs for x in _leaves(o)
+                if isinstance(x, torch.Tensor)]
+    return [outs]
+
+
+def _graphed_on_the_cpu(base):
+    """``base`` (a runner class) on the stand-in capture, its graph route
+    taken on the CPU."""
+    class Graphed(base):
+        capture_type = _ReplayedCapture
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.graphed = True
+    return Graphed
+
+
+@contextlib.contextmanager
+def _graphed(on: bool = True):
+    """Within the block (``on``), ``launch.steps``' runners are built on
+    the stand-in capture."""
+    from repro_torch.launch import steps
+    real = steps.StepGraph, steps.DecodeGraph
+    if on:
+        steps.StepGraph, steps.DecodeGraph = map(_graphed_on_the_cpu, real)
+    try:
+        yield
+    finally:
+        steps.StepGraph, steps.DecodeGraph = real
+
+
+def _state_leaves(state) -> list:
+    return [_np_t(x) for x in tree_leaves(vars(state))]
+
+
+def _lower_train(job):
+    """(b) ``bundle.lower()`` of a training bundle against a plain loop of
+    the bundle's eager call over the same batches, from the same init:
+    after each step, whether the loss and every state leaf are equal bit
+    for bit; on the stand-in capture's graph route with ``graphed``, and
+    the collective calls its capture counted."""
+    from repro_torch.launch.steps import build_train_step
+    cfg = _cfg(job)
+    batches = [{k: torch.from_numpy(v) for k, v in bt.items()}
+               for bt in job["batches"]]
+    b, s = batches[0]["tokens"].shape
+    run = RunConfig(arch=job["arch"], strategy=job["strategy"],
+                    learning_rate=job["lr"], compute_dtype="float32")
+    bundle = build_train_step(cfg, run, InputShape("custom", s, b, "train"),
+                              job["mesh_obj"])
+    def init():
+        return bundle.init(params=params_from_numpy(
+            bundle.cfg, job["params"], "cpu"), batch=batches[0])
+
+    plain, lowered = init(), init()
+    with _graphed(job["graphed"]):
+        runner = bundle.lower()
+        same = []
+        for bt in batches:
+            plain, m0 = bundle(plain, bt)
+            lowered, m1 = runner(lowered, bt)
+            same.append((bool(torch.equal(_np_t(m0["loss"]),
+                                          _np_t(m1["loss"]))),
+                         all(bool(torch.equal(x, y)) for x, y in zip(
+                             _state_leaves(plain), _state_leaves(lowered)))))
+    graph = runner.graph
+    return {"same": same, "collectives": _collectives(graph),
+            "captured": graph.capture is not None,
+            "placed_as": all(
+                (is_dtensor(x) and tuple(x.placements) == pl) or pl is None
+                for x, pl in zip(tree_leaves(vars(graph.state)),
+                                 _pl_leaves(bundle.in_placements[0])))}
+
+
+def _pl_leaves(pls) -> list:
+    """The placement tuples (or None) of a placement tree, in leaf
+    order."""
+    from torch.distributed.tensor import Placement
+    out = []
+
+    def walk(x):
+        if x is None or (isinstance(x, tuple) and x and all(
+                isinstance(q, Placement) for q in x)):
+            out.append(x)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+        elif dataclasses.is_dataclass(x):
+            walk(vars(x))
+    walk(pls)
+    return out
+
+
+def _lower_decode(job):
+    """(b) ``bundle.lower()`` of a decode bundle against a plain loop of
+    the bundle's eager call: one prefill, then greedy steps through each
+    from copies of its cache; after each step whether the logits and every
+    cache leaf are equal bit for bit (the graph route's on the stand-in
+    capture with ``graphed``)."""
+    from repro_torch.launch.graphs import buffer_of
+    cfg = _graph_cfg(job)
+    mesh = job["mesh_obj"]
+    tokens = torch.from_numpy(job["tokens"])
+    b, s = tokens.shape
+    pre, dec = _graph_bundles(job, cfg, mesh, s, s + job["gen"], b)
+    params = params_from_numpy(cfg, job["params"], "cpu")
+    v = cfg.vocab_size
+    same = []
+    with torch.no_grad(), _graphed(job["graphed"]):
+        logits, cache = pre(params, {"tokens": tokens},
+                            cache_len=s + job["gen"])
+        cache = _placed_cache(dec, cache)
+        plain = {k: buffer_of(x) for k, x in cache.items()}
+        lowered = {k: buffer_of(x) for k, x in cache.items()}
+        runner = dec.lower()
+        tok = torch.from_numpy(_np(logits)[:, -1, :v].argmax(-1)[:, None]
+                               .astype(np.int32))
+        for i in range(job["gen"]):
+            want, plain = dec(params, plain, tok, s + i)
+            got, lowered = runner(params, lowered, tok, s + i)
+            same.append((bool(torch.equal(_np_t(got), _np_t(want))),
+                         all(bool(torch.equal(_np_t(lowered[k]),
+                                              _np_t(plain[k])))
+                             for k in plain)))
+            tok = torch.from_numpy(_np(want)[:, -1, :v].argmax(-1)[:, None]
+                                   .astype(np.int32))
+    return {"same": same, "collectives": _collectives(runner.graph),
+            "captured": runner.graph.capture is not None}
+
+
+def _collectives(graph):
+    """The collective calls ``graph``'s stand-in capture counted (None
+    where it made none: the CPU route)."""
+    return graph.capture.collectives if graph.capture else None
+
+
+class _NoHostRead(TorchDispatchMode):
+    """A dispatch mode that refuses to read a tensor's value on the host
+    (``aten._local_scalar_dense``: ``int()``, ``float()``, ``.item()``):
+    what a CUDA graph of the step would freeze at the captured call.  An
+    op on a DTensor is left to DTensor, whose ops on the local shards
+    come back through the mode."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise RuntimeError("the step read a tensor's value on the host")
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+def _host_read(job):
+    """(c) Decode steps of the lowered runner at a device index, under
+    :class:`_NoHostRead`: the message it raises (None where the steps ran
+    through), with the step as it is and with the planted host-int write
+    (:func:`_parent_write`)."""
+    cfg = _graph_cfg(job)
+    mesh = job["mesh_obj"]
+    tokens = torch.from_numpy(job["tokens"])
+    b, s = tokens.shape
+    pre, dec = _graph_bundles(job, cfg, mesh, s, s + job["gen"], b)
+    params = params_from_numpy(cfg, job["params"], "cpu")
     out = {}
-    for name, params, cache in (("params", {"w": d}, plain),
-                                ("cache", plain, {"k": d})):
+    for name, ctx in (("as_is", contextlib.nullcontext),
+                      ("planted", _parent_write)):
+        with torch.no_grad():
+            _, cache = pre(params, {"tokens": tokens},
+                           cache_len=s + job["gen"])
+            runner = dec.lower()
+            index = torch.full((), s, dtype=torch.int32)
+            try:
+                with ctx(), _NoHostRead():
+                    for i in range(job["gen"]):
+                        index.fill_(s + i)
+                        _, cache = runner(params, cache, tokens[:, -1:],
+                                          index)
+                out[name] = None
+            except RuntimeError as e:
+                out[name] = str(e)
+    return out
+
+
+def _placement_mismatch(job):
+    """(d) A ``StepGraph`` whose step hands back a leaf placed otherwise
+    than its buffer (sharded over ``model``, handed back replicated): the
+    ``ValueError`` it raises on the CPU route and on the stand-in
+    capture's graph route (None where none was raised)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.graphs import StepGraph
+    mesh = job["mesh_obj"]
+    out = {}
+    for route in ("cpu", "graphed"):
+        w = distribute_tensor(torch.arange(16.0).reshape(4, 4), mesh,
+                              (Replicate(), Shard(0)), src_data_rank=None)
+
+        def step(state, batch):
+            new = (state["w"] + batch["x"]).redistribute(
+                mesh, (Replicate(), Replicate()))
+            return {"w": new}, None
+
+        runner = StepGraph(step, {"w": w})
+        if route == "graphed":
+            runner.graphed, runner.capture_type = True, _ReplayedCapture
+        x = distribute_tensor(torch.ones(4, 4), mesh, (Replicate(),
+                                                       Shard(0)),
+                              src_data_rank=None)
         try:
-            DecodeGraph(None, params, cache, 1)
-            out[name] = None
-        except TypeError as e:
-            out[name] = str(e)
+            for _ in range(3):
+                runner({"x": x})
+            out[route] = None
+        except ValueError as e:
+            out[route] = str(e)
     return out
 
 
 JOBS = {"train": _train, "serve": _serve, "moe": _moe,
         "server_step": _server_step, "refusals": _refusals,
-        "vocab": _vocab, "decode_graph": _decode_graph}
+        "vocab": _vocab, "decode_graph": _decode_graph,
+        "decode_write": _decode_write, "lower_train": _lower_train,
+        "lower_decode": _lower_decode, "host_read": _host_read,
+        "placement_mismatch": _placement_mismatch}
 
 
 def main(rank: int, world: int, store: str, jobs: str, out: str) -> None:
